@@ -1,0 +1,60 @@
+"""State carried between the JAX package and the port, as numpy arrays.
+
+Residues are uint32 in the JAX package and on the wire, int32 (same bits,
+values in [0, p) < 2**31) in the port. These helpers move keys, ciphertexts
+and the PIE's packed tables across in both directions, so both packages can
+compute on the same keys and tables.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from nested_hashing_psi_tpu_torch.fhe.bgv import Ciphertext, RelinKey, SecretKey
+
+
+def from_numpy(a, device) -> torch.Tensor:
+    """uint32 (or any integer array of residues < 2**31) -> int32 tensor."""
+    a = np.ascontiguousarray(np.asarray(a))
+    if a.dtype != np.uint32:
+        a = a.astype(np.uint32)
+    return torch.from_numpy(a.view(np.int32).copy()).to(device)
+
+
+def to_numpy(t: torch.Tensor) -> np.ndarray:
+    """int32 residue tensor -> uint32 numpy array (the wire dtype)."""
+    return np.ascontiguousarray(t.detach().cpu().numpy()).view(np.uint32)
+
+
+def secret_key_from_numpy(s_mont, s_ntt, device) -> SecretKey:
+    return SecretKey(s_mont=from_numpy(s_mont, device), s_ntt=from_numpy(s_ntt, device))
+
+
+def secret_key_to_numpy(sk: SecretKey) -> tuple[np.ndarray, np.ndarray]:
+    return to_numpy(sk.s_mont), to_numpy(sk.s_ntt)
+
+
+def relin_key_from_numpy(b_mont, a_mont, device) -> RelinKey:
+    return RelinKey(b_mont=from_numpy(b_mont, device), a_mont=from_numpy(a_mont, device))
+
+
+def relin_key_to_numpy(rlk: RelinKey) -> tuple[np.ndarray, np.ndarray]:
+    return to_numpy(rlk.b_mont), to_numpy(rlk.a_mont)
+
+
+def ciphertext_from_numpy(data, device, form: str = "bfv", scale: int = 1) -> Ciphertext:
+    return Ciphertext(from_numpy(data, device), form, scale)
+
+
+def pie_tables_to_numpy(pie) -> tuple[np.ndarray, np.ndarray]:
+    """(table_pt, mask_pt) of a port BatchedFHEPIE as uint32 arrays."""
+    return to_numpy(pie.table_pt), to_numpy(pie.mask_pt)
+
+
+def load_pie_tables(pie, table_pt, mask_pt) -> None:
+    """Replace a port BatchedFHEPIE's packed table and masks by the given
+    (e.g. the JAX package's) uint32 arrays, on the PIE's device."""
+    device = pie.table_pt.device
+    pie.table_pt = from_numpy(table_pt, device)
+    pie.mask_pt = from_numpy(mask_pt, device)

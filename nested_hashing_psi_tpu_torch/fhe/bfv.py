@@ -1,0 +1,195 @@
+"""RNS-BFV scheme layer (PyTorch): the BatchedFHE main path's scheme.
+
+Counterpart of ``nested_hashing_psi_tpu.fhe.bfv``, limited to the rescaled
+pipeline: scale-invariant (MSB) encoding with phase Delta*m + e, textbook
+HPS ct x ct (``ops.basis.BFVMulConverter``), the exact drop-limb rescale
+(``ops.basis.RNSRescale``), the fused ``hps_mul_relin_rescaled`` and the
+host decode of a BFV phase. The t-scaling bridge and the unrescaled
+``ct_ct_mul[_relin]`` are not on the main path and are not ported.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from nested_hashing_psi_tpu_torch.fhe.bgv import (
+    BGVContext,
+    Ciphertext,
+    tensor_product,
+)
+from nested_hashing_psi_tpu_torch.fhe.params import SchemeParams
+from nested_hashing_psi_tpu_torch.ops.basis import BFVMulConverter, RNSRescale
+from nested_hashing_psi_tpu_torch.ops.modmath import add_mod, mont_mul
+from nested_hashing_psi_tpu_torch.ops.ntt_cuda import intt, ntt
+
+
+class BFVContext(BGVContext):
+    default_form = "bfv"
+
+    def __init__(self, params: SchemeParams, seed: int = 0, *, device):
+        super().__init__(params, seed, device=device)
+        delta = params.q // self.t
+        self.delta_mont = self._col([((delta % p) << 32) % p for p in self.q_primes])
+        # noise is plain e (the message sits in the MSB)
+        self.noise_mont = self._col([(1 << 32) % p for p in self.q_primes])
+        self._mulconv: BFVMulConverter | None = None
+        self._rescalers: dict[int, RNSRescale] = {}
+
+    def _msg_prep(self, m_ntt):
+        return mont_mul(m_ntt, self.delta_mont, self.p, self.pinv)
+
+    @property
+    def mulconv(self) -> BFVMulConverter:
+        """Lazily-built HPS multiplication machinery."""
+        if self._mulconv is None:
+            self._mulconv = BFVMulConverter(self.q_primes, self.t, self.n)
+        return self._mulconv
+
+    def _ntt_fast_aux(self, x):
+        return ntt(x, self.mulconv.plan_aux)
+
+    def _intt_fast_aux(self, x):
+        return intt(x, self.mulconv.plan_aux)
+
+    def _hps_core(self, a_data, b_data, ab_coeffs=None) -> torch.Tensor:
+        """Textbook HPS product core: NTT-domain operands (each (..., 2, L, N))
+        -> coefficient-domain product over q, (..., 3, L, N).
+
+        ab_coeffs, when given, is the stacked (2, ..., 2, L, N)
+        coefficient-domain view of the operands (the rescaled path already
+        has it, so the iNTT is skipped)."""
+        mc = self.mulconv
+        tb = mc.plan_aux.tensors(self.device)
+        if ab_coeffs is None:
+            ab_coeffs = self._intt_fast(torch.stack([a_data, b_data], dim=0))
+        # both operands ride one stacked transform per direction
+        eab = self._ntt_fast_aux(mc.extend_q_to_aux(ab_coeffs))
+        d_q = tensor_product(a_data, b_data, self.p, self.pinv, self.r2)
+        d_aux = tensor_product(eab[0], eab[1], tb["p"], tb["pinv"], tb["r2"])
+        # scale by t/q with rounding, exact-convert back to q
+        y = mc.scale_round(self._intt_fast(d_q), self._intt_fast_aux(d_aux))
+        return mc.exact_to_q(y)
+
+    # ------------------------------------------------------------------
+    # drop-limb rescale (BFV modulus switch) + the rescaled mult pipeline
+    # ------------------------------------------------------------------
+    def _rescaler(self, n_limbs: int) -> RNSRescale:
+        """Cached exact RNS rescale from this context's basis to its first
+        n_limbs primes."""
+        if n_limbs not in self._rescalers:
+            self._rescalers[n_limbs] = RNSRescale(self.q_primes, self.L - n_limbs)
+        return self._rescalers[n_limbs]
+
+    def rescale_coeffs(self, coeffs: torch.Tensor, n_limbs: int) -> torch.Tensor:
+        """(..., L, N) coefficient-domain -> (..., n_limbs, N) over the
+        child basis (exact integer rescale; see RNSRescale)."""
+        assert 1 <= n_limbs < self.L
+        return self._rescaler(n_limbs).rescale(coeffs)
+
+    def hps_mul_relin_rescaled(
+        self,
+        a: Ciphertext,
+        b: Ciphertext,
+        rlk,
+        mul_limbs: int,
+        ship_limbs: int | None = None,
+        a_limbs: int | None = None,
+    ) -> Ciphertext:
+        """EvalMult + relin with both operands first rescaled to mul_limbs
+        limbs: the operands' inverse transforms feed the rescale, whose
+        output feeds both the q'-side forward NTT and the HPS base
+        extension. Optionally rescales the product once more to ship_limbs
+        (the wire/decrypt basis). a may already live on a smaller basis
+        (a_limbs); b is on the full basis. rlk is the FULL-basis relin key,
+        shrunk to the mult basis here."""
+        assert a.form == "bfv" and b.form == "bfv"
+        mctx = self.context_for_limbs(mul_limbs)
+        a_L = a.data.shape[-2] if a_limbs is None else a_limbs
+        if a_L == self.L and b.data.shape[-2] == self.L:
+            ab_coeffs = self._intt_fast(torch.stack([a.data, b.data], dim=0))
+            ab_m = self.rescale_coeffs(ab_coeffs, mul_limbs)
+        else:
+            actx = self.context_for_limbs(a_L)
+            a_c = actx._intt_fast(a.data)
+            a_m = actx.rescale_coeffs(a_c, mul_limbs) if a_L > mul_limbs else a_c
+            b_m = self.rescale_coeffs(self._intt_fast(b.data), mul_limbs)
+            ab_m = torch.stack([a_m, b_m], dim=0)
+        ntt_m = mctx._ntt_fast(ab_m)
+        y = mctx._hps_core(ntt_m[0], ntt_m[1], ab_coeffs=ab_m)
+        d01 = mctx._ntt_fast(y[..., :2, :, :])
+        rlk_m = self.shrink_relin_key(rlk, mul_limbs)
+        ks0, ks1 = mctx._key_switch_coeffs(y[..., 2, :, :], rlk_m)
+        data = torch.stack(
+            [
+                add_mod(d01[..., 0, :, :], ks0, mctx.p),
+                add_mod(d01[..., 1, :, :], ks1, mctx.p),
+            ],
+            dim=-3,
+        )
+        scale = a.scale * b.scale % self.t
+        if ship_limbs is not None and ship_limbs < mul_limbs:
+            sctx = self.context_for_limbs(ship_limbs)
+            coeffs = mctx._intt_fast(data)
+            data = sctx._ntt_fast(mctx.rescale_coeffs(coeffs, ship_limbs))
+        return Ciphertext(data, "bfv", scale)
+
+    def _phase_to_mt_bfv(self, phase: np.ndarray):
+        """m = round(t/q * [phase]_q) mod t via the CRT float trick; exact
+        native __int128 kernel for t >= 2^33, exact object arithmetic for
+        t >= 2^40 otherwise."""
+        if self.t >= 1 << 33:
+            from nested_hashing_psi_tpu.utils import native
+
+            res = native.phase_to_mt(phase, self.q_primes, self.t, "bfv")
+            if res is not None:
+                m, dist = res
+                noise_bits = (
+                    np.log2(dist) + self.params.q.bit_length() - self.t.bit_length()
+                    if dist > 0
+                    else 0.0
+                )
+                return m, noise_bits
+        y = (phase * self._crt_inv.reshape(-1, 1)) % np.array(
+            self.q_primes, np.uint64
+        ).reshape(-1, 1)
+        v = (y.astype(np.float64) / self._crt_qi_f.reshape(-1, 1)).sum(axis=-2)
+        frac = v - np.floor(v)
+        t = self.t
+        # float64 error ~ L * 2^-52; safe for t below ~2^40
+        if t < 1 << 40:
+            m = np.round(frac * t).astype(np.int64) % t
+            err = np.abs(frac * t - np.round(frac * t))
+            max_err = float(err.max()) if err.size else 0.0
+            noise_bits = (
+                float(np.log2(max_err)) + self.params.q.bit_length() - t.bit_length()
+                if max_err > 0
+                else 0.0
+            )
+            return m.astype(object), noise_bits
+        from nested_hashing_psi_tpu_torch.ops.primes import crt_reconstruct
+
+        q = self.params.q
+        flat = phase.reshape(-1, self.L, self.n)
+        out = np.zeros((flat.shape[0], self.n), dtype=object)
+        for b in range(flat.shape[0]):
+            for j in range(self.n):
+                x = crt_reconstruct(
+                    [int(flat[b, i, j]) for i in range(self.L)],
+                    list(self.q_primes),
+                )
+                out[b, j] = (x * t + q // 2) // q % t
+        return out.reshape(phase.shape[:-2] + (self.n,)), 0.0
+
+
+def make_context(params: SchemeParams, seed: int | None = 0, *, device) -> BFVContext:
+    """Scheme factory on an explicit device. seed=None draws the generator
+    seed from OS entropy (secrets) -- required wherever secret keys are made
+    in production paths; an explicit int seed is for tests only."""
+    if params.scheme != "bfv":
+        raise NotImplementedError("BGV (--bgv) is not ported yet")
+    if seed is None:
+        import secrets
+
+        seed = secrets.randbits(63)
+    return BFVContext(params, seed, device=device)

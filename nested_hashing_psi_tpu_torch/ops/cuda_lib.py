@@ -1,0 +1,102 @@
+"""Build and load the port's CUDA kernels (csrc/*.cu) as one shared library.
+
+The sources are compiled with nvcc for sm_90a into a plain-C shared library
+under ``build/nhpsi_torch/`` at the repository root, at first use, and loaded
+with ctypes (no PyTorch headers: the build takes seconds). The library is
+rebuilt when any source is newer than it. Nothing here runs at import time:
+``get_lib`` is called by the kernel wrappers when they are handed a CUDA
+tensor, and it raises if nvcc or the build fails -- there is no fallback.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import glob
+import os
+import shutil
+import subprocess
+import threading
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "nhpsi_torch")
+LIB_PATH = os.path.join(BUILD_DIR, "libnhpsi_torch_kernels.so")
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+]
+
+_lock = threading.Lock()
+_lib = None
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_SIGNATURES = {
+    # (x, y, psi, primes, rows, L, logn, stream)
+    "nhpsi_ntt_fwd": [_P, _P, _P, _P, _I, _I, _I, _P],
+    # (x, y, ipsi, ninv, primes, rows, L, logn, stream)
+    "nhpsi_ntt_inv": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # (idx, pt, out, primes, pinvs, H, D, P, L, N, stream)
+    "nhpsi_pie_ip": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+}
+
+
+def find_nvcc() -> str:
+    for cand in (
+        os.path.join(os.environ.get("CUDA_HOME", ""), "bin", "nvcc"),
+        shutil.which("nvcc") or "",
+        "/usr/local/cuda/bin/nvcc",
+    ):
+        if cand and os.path.isfile(cand) and os.access(cand, os.X_OK):
+            return cand
+    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
+
+
+def sources() -> list[str]:
+    return sorted(glob.glob(os.path.join(CSRC, "*.cu")))
+
+
+def build(verbose: bool = False) -> str:
+    """Compile csrc/*.cu into LIB_PATH (atomically replaced). Returns the
+    compiler's output (register/spill report with verbose=True)."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{LIB_PATH}.{os.getpid()}.tmp"
+    cmd = [find_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+           "-o", tmp, *sources()]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({res.returncode}):\n{res.stdout}\n{res.stderr}"
+        )
+    os.replace(tmp, LIB_PATH)
+    return res.stdout + res.stderr
+
+
+def _stale() -> bool:
+    if not os.path.exists(LIB_PATH):
+        return True
+    built = os.path.getmtime(LIB_PATH)
+    deps = sources() + glob.glob(os.path.join(CSRC, "*.cuh"))
+    return any(os.path.getmtime(s) > built for s in deps)
+
+
+def get_lib() -> ctypes.CDLL:
+    """The loaded kernel library, built first if missing or stale."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            if _stale():
+                build()
+            lib = ctypes.CDLL(LIB_PATH)
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _lib = lib
+        return _lib
+
+
+def check(rc: int, what: str) -> None:
+    """Raise on a non-zero cudaError_t returned by a launch."""
+    if rc != 0:
+        raise RuntimeError(f"{what} launch failed: cudaError {rc}")

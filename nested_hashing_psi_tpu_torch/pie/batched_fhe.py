@@ -1,0 +1,277 @@
+"""Batched FHE PIE: the flagship private-indexed-equality engine (PyTorch).
+
+Counterpart of ``nested_hashing_psi_tpu.pie.batched_fhe``. For every server
+bin depth d the server computes, per inner hash function h,
+
+    ip[h] = sum_pos Enc(idx[h][pos]) * pt(table[h][d][pos][slot])  + Enc(-elem)
+
+multiplies across hash functions (zero iff any hash matched) with the
+per-depth random masks folded into hash 0's table plaintexts. Slot c of any
+depth decrypting to 0 means the client's item in cuckoo slot c is in the
+intersection.
+
+The position sum is K2 (``ops.pie_kernels``); every transform is K1. Ported:
+the BFV rescaled-mult pipeline (and the trivial H = 1 case). The leveled BGV
+chain, the unrescaled cross-hash product, the streamed upload and the
+host-resident table are not ported and raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+from torch import nn
+
+from nested_hashing_psi_tpu.hashing.cuckoo import CuckooHashTable
+from nested_hashing_psi_tpu.hashing.hierarchical import HierarchicalCuckooHashTable
+from nested_hashing_psi_tpu_torch.fhe.bfv import BFVContext
+from nested_hashing_psi_tpu_torch.fhe.bgv import Ciphertext, RelinKey, SecretKey
+from nested_hashing_psi_tpu_torch.fhe.params import bfv_mul_limbs, bfv_ship_limbs
+from nested_hashing_psi_tpu_torch.ops.modmath import add_mod, mont_mul
+from nested_hashing_psi_tpu_torch.ops.pie_kernels import indexed_inner_product
+
+
+def _zero_slots(result_slots: np.ndarray) -> np.ndarray:
+    """Vectorized slot == 0 test over decrypted values."""
+    zero = np.equal(np.asarray(result_slots), 0)
+    return zero if zero.dtype == bool else zero.astype(bool)
+
+
+def batched_pie_forward(
+    ctx: BFVContext,
+    rlk: RelinKey,
+    idx_data: torch.Tensor,    # (H, P, 2, L, N) index ciphertexts
+    minus_data: torch.Tensor,  # (2, L, N) minus-element ciphertext
+    table_pt: torch.Tensor,    # (H, D, P, L, N) packed server table (Montgomery)
+    mask_pt: torch.Tensor,     # (D, L, N) per-depth masks (Montgomery)
+    mul_limbs: int | None = None,
+    ship_limbs: int | None = None,
+) -> Ciphertext:
+    """The online step: position sums (K2), then combine_ip. Returns the
+    result Ciphertext (D, 2, L', N)."""
+    ip = position_sum(ctx, idx_data, table_pt)
+    return combine_ip(
+        ctx, rlk, ip, minus_data, mask_pt, mul_limbs=mul_limbs,
+        ship_limbs=ship_limbs,
+    )
+
+
+def position_sum(ctx: BFVContext, idx_data, table_pt) -> torch.Tensor:
+    """Per-(hash, depth) position-summed ct x pt products: (H, D, 2, L, N)."""
+    return indexed_inner_product(idx_data, table_pt, ctx.p, ctx.pinv)
+
+
+def combine_ip(
+    ctx: BFVContext,
+    rlk: RelinKey,
+    ip: torch.Tensor,          # (H, D, 2, L, N) position sums
+    minus_data: torch.Tensor,  # (2, L, N)
+    mask_pt: torch.Tensor,     # (D, L, N)
+    mul_limbs: int | None = None,
+    ship_limbs: int | None = None,
+) -> Ciphertext:
+    """Add -elem (hash 0 takes the per-depth MASKED minus-element, the masks
+    being folded into hash 0's table), then multiply across hash functions
+    on the rescaled basis (HPS + relin on mul_limbs, result on ship_limbs)."""
+    H = ip.shape[0]
+    minus_masked = mont_mul(
+        minus_data[None], mask_pt[:, None], ctx.p, ctx.pinv
+    )  # (D, 2, L, N)
+    acc = Ciphertext(add_mod(ip[0], minus_masked, ctx.p), "bfv", 1)
+    if H == 1:
+        return acc
+    if not (mul_limbs and mul_limbs < ctx.L):
+        raise NotImplementedError(
+            "only the rescaled BFV pipeline (mul_limbs < L) is ported; the "
+            "full-basis and leveled cross-hash products are not"
+        )
+    cur = ctx.L
+    for h in range(1, H):
+        acc = ctx.hps_mul_relin_rescaled(
+            acc,
+            Ciphertext(add_mod(ip[h], minus_data[None], ctx.p), "bfv", 1),
+            rlk,
+            mul_limbs,
+            ship_limbs=ship_limbs if h == H - 1 else None,
+            a_limbs=cur,
+        )
+        cur = mul_limbs
+    return acc
+
+
+class BatchedFHEPIE(nn.Module):
+    """Server-side engine over the whole nested table. ``table_pt``,
+    ``mask_pt`` and the relin key are buffers on the context's device;
+    ``forward(idx, minus)`` is the online step on ciphertext data."""
+
+    def __init__(
+        self,
+        ctx: BFVContext,
+        hct: HierarchicalCuckooHashTable,
+        rlk: RelinKey,
+        mask_seed: int | None = None,
+        encode_slab: int = 2048,
+    ):
+        super().__init__()
+        if hct.server_stash_size != 0:
+            raise ValueError("batched FHE PIE does not support a stash")
+        if not (hct.simple_multi_table and hct.cuckoo_multi_table):
+            raise ValueError("batched FHE PIE does not support combined tables")
+        if ctx.default_form != "bfv":
+            raise NotImplementedError("only the BFV batched PIE is ported")
+        self.ctx = ctx
+        self.H = hct.n_cuckoo_hash_functions
+        self._setup_mul_limbs()
+        self.D = hct.max_items_per_position
+        self.P = hct.each_cuckoo_table_size
+        self.batch_slots = hct.n_simple_tables * hct.each_simple_table_size
+        self.register_buffer("rlk_b", rlk.b_mont)
+        self.register_buffer("rlk_a", rlk.a_mont)
+
+        rng = np.random.Generator(
+            np.random.Philox(
+                key=np.random.SeedSequence().entropy if mask_seed is None else mask_seed
+            )
+        )
+        # shuffle depth rows per (outer cell, inner table) to hide which
+        # depth matched; numpy Philox draws, so the same mask_seed gives the
+        # JAX package's table bit for bit
+        table = hct.table
+        S, O = table.shape[0], table.shape[1]
+        perm = np.argsort(rng.random((S, O, self.H, self.D)), axis=-1)
+        if table[..., 1].any():
+            raise ValueError("FHE paths support items below 64 bits only")
+        vals = np.take_along_axis(table[..., 0], perm[..., None], axis=3)
+        del perm
+        # -> slot-major (H, D, P, batch = S*O)
+        slots = np.ascontiguousarray(vals.transpose(2, 3, 4, 0, 1)).reshape(
+            self.H, self.D, self.P, -1
+        )
+        del vals
+
+        # per-depth random nonzero masks, folded into hash 0's table slots
+        mask_vals = rng.integers(1, ctx.t, size=(self.D, self.batch_slots))
+        t_obj = int(ctx.t)
+        mask_obj = mask_vals.astype(object)
+        self.register_buffer("mask_pt", ctx.make_plaintext_mont(mask_obj))
+
+        # packed encode on the host in bounded slabs; each slab's NTT is K1
+        flat = slots.reshape(self.H * self.D * self.P, self.batch_slots)
+        DP = self.D * self.P
+        slabs = []
+        for s in range(0, flat.shape[0], encode_slab):
+            chunk = flat[s : s + encode_slab].astype(object)
+            # row r -> (h, d, p); h == 0 iff r < D*P
+            for r in range(s, min(s + len(chunk), DP)):
+                chunk[r - s] = chunk[r - s] * mask_obj[r // self.P] % t_obj
+            slabs.append(ctx.make_plaintext_mont(chunk))
+        pt = slabs[0] if len(slabs) == 1 else torch.cat(slabs, dim=0)
+        self.register_buffer(
+            "table_pt", pt.reshape(self.H, self.D, self.P, ctx.L, ctx.n)
+        )
+
+    @property
+    def rlk(self) -> RelinKey:
+        return RelinKey(b_mont=self.rlk_b, a_mont=self.rlk_a)
+
+    def _setup_mul_limbs(self) -> None:
+        """The rescaled-mult basis from the noise model (fhe.params): the
+        cross-hash HPS mults + relin run on mul_limbs limbs and the result
+        ships on ship_limbs. Child contexts, converters and rescalers are
+        built here, before the first query."""
+        ctx = self.ctx
+        self.mul_limbs = self.ship_limbs = None
+        if self.H == 1:
+            return
+        mul_limbs = bfv_mul_limbs(ctx.t.bit_length(), ctx.L, self.H - 1, ring_dim=ctx.n)
+        if mul_limbs >= ctx.L:
+            raise NotImplementedError(
+                f"mul_limbs={mul_limbs} with L={ctx.L}: only the rescaled BFV "
+                "pipeline is ported"
+            )
+        self.mul_limbs = mul_limbs
+        self.ship_limbs = bfv_ship_limbs(ctx.t.bit_length(), mul_limbs, ring_dim=ctx.n)
+        mctx = ctx.context_for_limbs(self.mul_limbs)
+        mctx.mulconv
+        ctx._rescaler(self.mul_limbs)
+        if self.ship_limbs < self.mul_limbs:
+            ctx.context_for_limbs(self.ship_limbs)
+            mctx._rescaler(self.ship_limbs)
+
+    def forward(self, idx: torch.Tensor, minus: torch.Tensor) -> Ciphertext:
+        """idx: (H, P, 2, L, N); minus: (2, L, N) -> result (D, 2, L', N)."""
+        return batched_pie_forward(
+            self.ctx, self.rlk, idx, minus, self.table_pt, self.mask_pt,
+            mul_limbs=self.mul_limbs, ship_limbs=self.ship_limbs,
+        )
+
+    def run(self, index_cts: Ciphertext, minus_ct: Ciphertext) -> Ciphertext:
+        return self(index_cts.data, minus_ct.data)
+
+    def run_many(self, index_batch: torch.Tensor, minus_batch: torch.Tensor) -> torch.Tensor:
+        """Q independent queries: index_batch (Q, H, P, 2, L, N), minus_batch
+        (Q, 2, L, N) -> (Q, D, 2, L', N). One query's working set at a time;
+        per-query results are identical to run()."""
+        return torch.stack(
+            [self(i, m).data for i, m in zip(index_batch, minus_batch)]
+        )
+
+
+@dataclass
+class BatchedFHEClientOps:
+    """Client-side batched-PIE operations: index-matrix construction and
+    result extraction (reference: BatchedFHEPSIClient.cpp:107-193)."""
+
+    ctx: BFVContext
+    client_table: CuckooHashTable
+    n_simple_hf: int
+    n_cuckoo_hf: int
+    each_cuckoo_table_size: int
+
+    def build_index_and_minus(self) -> tuple[np.ndarray, np.ndarray]:
+        """-> (plain index matrix (H, P, batch) 0/1, minus-element (batch,));
+        empty client slots contribute 0-rows and minus-element 1."""
+        tab = self.client_table.table  # (n_tables, 1, simple_size, 2)
+        items = tab[:, 0, :, :].reshape(-1, 2)  # (batch, 2) slot-major
+        batch = items.shape[0]
+        H, P = self.n_cuckoo_hf, self.each_cuckoo_table_size
+        occupied = (items != 0).any(axis=1)
+        minus = np.ones(batch, dtype=object)
+        vals = items[:, 0].astype(object) + (items[:, 1].astype(object) << 64)
+        for c in np.nonzero(occupied)[0]:
+            minus[c] = -int(vals[c])
+        index = np.zeros((H, P, batch), dtype=np.int64)
+        hasher = self.client_table.hasher
+        occ_items = items[occupied]
+        occ_slots = np.nonzero(occupied)[0]
+        for h in range(H):
+            pos = hasher.hash_index(occ_items, self.n_simple_hf + h, P)
+            index[h, pos, occ_slots] = 1
+        return index, minus
+
+    def encrypt_query(self, sk: SecretKey) -> tuple[Ciphertext, Ciphertext]:
+        """-> (index ciphertexts (H, P, 2, L, N), minus ciphertext (2, L, N))."""
+        index, minus = self.build_index_and_minus()
+        H, P, batch = index.shape
+        pt_idx = self.ctx.make_plaintext_rns(index.reshape(H * P, batch).astype(object))
+        idx_ct = self.ctx.encrypt_sk(pt_idx, sk)
+        idx_ct = Ciphertext(
+            idx_ct.data.reshape(H, P, 2, self.ctx.L, self.ctx.n), idx_ct.form
+        )
+        minus_ct = self.ctx.encrypt_sk(self.ctx.make_plaintext_rns(minus), sk)
+        return idx_ct, minus_ct
+
+    def extract_intersection(self, result_slots: np.ndarray) -> np.ndarray:
+        """result_slots: (D, batch) decrypted values -> (k, 2) uint64 items of
+        the intersection (slot c matches iff any depth is 0)."""
+        return self.extract_intersection_mask(_zero_slots(result_slots))
+
+    def extract_intersection_mask(self, zero_mask: np.ndarray) -> np.ndarray:
+        """Same extraction from a per-slot zero mask (D, batch) or (batch,)."""
+        zero_mask = np.asarray(zero_mask, dtype=bool)
+        matched = zero_mask.any(axis=0) if zero_mask.ndim > 1 else zero_mask
+        tab = self.client_table.table[:, 0, :, :].reshape(-1, 2)
+        occupied = (tab != 0).any(axis=1)
+        return tab[matched[: len(tab)] & occupied]

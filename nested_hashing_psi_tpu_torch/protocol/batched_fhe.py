@@ -1,0 +1,261 @@
+"""Batched FHE PSI protocol: the headline client/server pair (PyTorch).
+
+Counterpart of ``nested_hashing_psi_tpu.protocol.batched_fhe`` with the same
+phases and the same wire frames (scheme-params vector, relin key, minus and
+index ciphertexts, result meta + result ciphertexts, all uint32 tensors), so
+a port party can talk to a JAX party. Each party computes on an explicit
+``device``; "cuda" raises when no GPU is present. The client decrypts on the
+host (the JAX package's off-TPU branch). Not ported, raising
+``NotImplementedError``: --bgv, --streamChunks > 1, the host-resident table
+(tables above 5 GB), and the on-device decrypt.
+"""
+
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import torch
+
+from nested_hashing_psi_tpu.config import HashTableParams, PSIParams
+from nested_hashing_psi_tpu.hashing import (
+    CuckooHashTable,
+    HierarchicalCuckooHashTable,
+    TabulationHashing,
+)
+from nested_hashing_psi_tpu.protocol.base import PSIClientBase, PSIServerBase
+from nested_hashing_psi_tpu.protocol.channel import Channel
+from nested_hashing_psi_tpu_torch.convert import (
+    ciphertext_from_numpy,
+    from_numpy,
+    relin_key_from_numpy,
+    to_numpy,
+)
+from nested_hashing_psi_tpu_torch.fhe.bfv import make_context
+from nested_hashing_psi_tpu_torch.fhe.params import (
+    SchemeParams,
+    bfv_batched_client_limbs,
+    plaintext_modulus_for_bit_size,
+    validate_wire_scheme_params,
+)
+from nested_hashing_psi_tpu_torch.pie.batched_fhe import (
+    BatchedFHEClientOps,
+    BatchedFHEPIE,
+)
+
+PROTOCOL_NAME = "BatchedFHE"
+HOST_TABLE_BYTES = 5 << 30  # above this the reference keeps the table on the host
+
+
+def resolve_device(device) -> torch.device:
+    """torch.device for a party; a CUDA device must exist (no CPU fallback)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device!r} requested but CUDA is not available")
+    return dev
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _scheme_params(psi: PSIParams, ht: HashTableParams) -> SchemeParams:
+    if psi.bgv:
+        raise NotImplementedError("--bgv (BGV / leveled PIE) is not ported yet")
+    t = plaintext_modulus_for_bit_size(psi.bit_size)
+    auto = bfv_batched_client_limbs(
+        t.bit_length(),
+        ht.each_cuckoo_table_size,
+        ht.n_cuckoo_hash_functions,
+        ring_dim=psi.ring_dim,
+    )
+    sp = SchemeParams(
+        ring_dim=psi.ring_dim,
+        plaintext_modulus=t,
+        num_limbs=psi.num_limbs or auto,
+        scheme="bfv",
+    )
+    sp.validate_security()
+    return sp
+
+
+class BatchedFHEPSIClient(PSIClientBase):
+    def __init__(self, data, params: PSIParams, ht: HashTableParams,
+                 channel: Channel, device="cuda", **kw):
+        super().__init__(data, params, channel, PROTOCOL_NAME, **kw)
+        self.ht = ht
+        self.device = resolve_device(device)
+
+    def run_setup_phase(self) -> None:
+        p, ht = self.params, self.ht
+        if ht.batch_slots > p.ring_dim:
+            raise ValueError(
+                f"batch slots {ht.batch_slots} exceed ring dim {p.ring_dim}"
+            )
+        if p.stream_chunks > 1:
+            raise NotImplementedError("--streamChunks > 1 is not ported yet")
+        self.hasher = TabulationHashing(
+            p.hash_seed, ht.n_simple_hash_functions + ht.n_cuckoo_hash_functions
+        )
+        self.ctx = make_context(_scheme_params(p, ht), seed=None, device=self.device)
+        self.sk, self.pk = self.ctx.keygen()
+        self.rlk = self.ctx.relin_keygen(self.sk)
+        self.client_table = CuckooHashTable(
+            self.hasher,
+            each_table_size=ht.each_simple_table_size,
+            n_hash_functions=ht.n_simple_hash_functions,
+            starting_hash_id=0,
+            max_stash_size=0,
+            multi_table=ht.simple_multi_table,
+            max_items_per_position=1,
+            seed=p.item_seed ^ 0x5EED,
+        )
+        sp = self.ctx.params
+        self.channel.write_tensor(
+            np.array([sp.ring_dim, sp.plaintext_modulus, sp.num_limbs, 0], np.uint64)
+        )
+        self.channel.write_tensor(to_numpy(self.rlk.b_mont))
+        self.channel.write_tensor(to_numpy(self.rlk.a_mont))
+
+    def run_offline_phase(self) -> None:
+        self.client_table.insert_all(self.client_set)
+        self.client_ops = BatchedFHEClientOps(
+            self.ctx,
+            self.client_table,
+            self.ht.n_simple_hash_functions,
+            self.ht.n_cuckoo_hash_functions,
+            self.ht.each_cuckoo_table_size,
+        )
+        self.idx_ct, self.minus_ct = self.client_ops.encrypt_query(self.sk)
+        _sync(self.device)  # the offline phase owns this cost
+
+    def _read_and_decrypt(self):
+        """Read the result frames and decrypt on the host (a result on a
+        smaller basis is decrypted in the matching child context)."""
+        meta = self.channel.read_tensor()
+        form = "bgv" if int(meta[0]) else "bfv"
+        result = ciphertext_from_numpy(
+            self.channel.read_tensor(), self.device, form, int(meta[1])
+        )
+        slots, self.noise_bits = self.ctx.decrypt(
+            result, self.sk, length=self.ht.batch_slots
+        )
+        return slots
+
+    def run_online_phase(self) -> None:
+        if self.params.num_queries > 1:
+            return self._run_online_many(self.params.num_queries)
+        self.channel.write_tensor(to_numpy(self.minus_ct.data))
+        self.channel.write_tensor(np.array([1], np.uint64))  # one chunk
+        self.channel.write_tensor(to_numpy(self.idx_ct.data))
+        self.intersection_calculated = self.client_ops.extract_intersection(
+            np.asarray(self._read_and_decrypt())
+        )
+
+    def _run_online_many(self, Q: int) -> None:
+        """Q query sets in ONE exchange (--queries Q); the client checks that
+        every query's zero mask agrees before extracting."""
+        self.channel.write_tensor(to_numpy(torch.stack([self.minus_ct.data] * Q)))
+        self.channel.write_tensor(to_numpy(torch.stack([self.idx_ct.data] * Q)))
+        slots = self._read_and_decrypt()  # (Q, D, batch)
+        per_q = (np.asarray(slots, dtype=object) == 0).any(axis=1)  # (Q, batch)
+        if not (per_q == per_q[0]).all():
+            raise ValueError("multi-query results disagree across the batch")
+        self.intersection_calculated = self.client_ops.extract_intersection_mask(
+            per_q[0]
+        )
+
+
+class BatchedFHEPSIServer(PSIServerBase):
+    def __init__(self, data, params: PSIParams, ht: HashTableParams,
+                 channel: Channel, device="cuda", **kw):
+        super().__init__(data, params, channel, PROTOCOL_NAME, **kw)
+        self.ht = ht
+        self.device = resolve_device(device)
+
+    def run_setup_phase(self) -> None:
+        p, ht = self.params, self.ht
+        self.hasher = TabulationHashing(
+            p.hash_seed, ht.n_simple_hash_functions + ht.n_cuckoo_hash_functions
+        )
+        meta = self.channel.read_tensor()
+        if meta.shape != (4,):
+            raise ValueError(f"malformed scheme-params frame {meta.shape}")
+        ring_dim, t, limbs, is_bgv = (int(v) for v in meta)
+        # client-supplied parameters are untrusted: bound them first
+        sp = validate_wire_scheme_params(
+            ring_dim, t, limbs, "bgv" if is_bgv else "bfv"
+        )
+        self.ctx = make_context(sp, seed=None, device=self.device)
+        self.rlk = relin_key_from_numpy(
+            self.channel.read_tensor(), self.channel.read_tensor(), self.device
+        )
+        self.server_table = HierarchicalCuckooHashTable.from_params(
+            self.hasher, ht, seed=p.item_seed ^ 0x7A11
+        )
+
+    def run_offline_phase(self) -> None:
+        begin = time.monotonic_ns()
+        self.server_table.insert_all(self.server_set)
+        ht, ctx = self.ht, self.ctx
+        table_bytes = (
+            ht.n_cuckoo_hash_functions * ht.max_items_per_position
+            * ht.each_cuckoo_table_size * ctx.L * ctx.n * 4
+        )
+        if table_bytes > HOST_TABLE_BYTES:
+            raise NotImplementedError(
+                f"packed table of {table_bytes} B: the host-resident table "
+                "path (tables above 5 GB) is not ported yet"
+            )
+        self.pie = BatchedFHEPIE(ctx, self.server_table, self.rlk)
+        _sync(self.device)
+        self.offline_computation_us = (time.monotonic_ns() - begin) // 1000
+
+    def run_online_phase(self) -> None:
+        minus_raw = self.channel.read_tensor()
+        if minus_raw.ndim == 4:  # (Q, 2, L, N): multi-query transaction
+            return self._run_online_many(minus_raw)
+        n_chunks = int(self.channel.read_tensor()[0])
+        P = self.ht.each_cuckoo_table_size
+        if not (1 <= n_chunks <= P and P % n_chunks == 0):
+            raise ValueError(
+                f"invalid stream chunk count {n_chunks} from client "
+                f"(must divide the inner position count {P})"
+            )
+        if n_chunks != 1:
+            raise NotImplementedError("streamed upload (--streamChunks > 1) is not ported yet")
+        idx = from_numpy(self.channel.read_tensor(), self.device)
+        minus = from_numpy(minus_raw, self.device)
+        begin = time.monotonic_ns()
+        result = self.pie(idx, minus)
+        _sync(self.device)
+        self.online_computation_us = (time.monotonic_ns() - begin) // 1000
+        self.channel.write_tensor(
+            np.array([1 if result.form == "bgv" else 0, result.scale], np.uint64)
+        )
+        self.channel.write_tensor(to_numpy(result.data))
+        if self.params.export_performance:
+            self.export_measurements()
+
+    def _run_online_many(self, minus_raw) -> None:
+        """Serve a (Q, ...) multi-query transaction."""
+        Q = minus_raw.shape[0]
+        if not (2 <= Q <= 1024):
+            raise ValueError(f"multi-query batch size {Q} outside [2, 1024]")
+        idx_raw = self.channel.read_tensor()
+        if idx_raw.ndim != 6 or idx_raw.shape[0] != Q:
+            raise ValueError(
+                f"multi-query index tensor shape {idx_raw.shape} does not "
+                f"match batch size {Q}"
+            )
+        idx_b = from_numpy(idx_raw, self.device)
+        minus_b = from_numpy(minus_raw, self.device)
+        begin = time.monotonic_ns()
+        out = self.pie.run_many(idx_b, minus_b)
+        _sync(self.device)
+        self.online_computation_us = (time.monotonic_ns() - begin) // 1000
+        self.channel.write_tensor(np.array([0, 1], np.uint64))  # bfv, scale 1
+        self.channel.write_tensor(to_numpy(out))
+        if self.params.export_performance:
+            self.export_measurements()

@@ -1,0 +1,184 @@
+"""End-to-end BatchedFHE protocol of the port, alone and mixed with the JAX
+package: the self-verifying client must print "Set matches!".
+
+The mixed runs put a JAX party and a port party on the two ends of a
+serializing loopback channel (every frame crosses as wire bytes), in both
+directions, with the client verifying against the generator's ground truth.
+"""
+
+import dataclasses
+import os
+import socket
+import subprocess
+import sys
+import threading
+
+import pytest
+import torch
+
+from nested_hashing_psi_tpu.config import HashTableParams, PSIParams
+from nested_hashing_psi_tpu.data.input import RandomDataInput
+from nested_hashing_psi_tpu.protocol import batched_fhe as j_proto
+from nested_hashing_psi_tpu.protocol.channel import LoopbackChannel
+from nested_hashing_psi_tpu_torch import cli
+from nested_hashing_psi_tpu_torch.protocol import batched_fhe as t_proto
+from nested_hashing_psi_tpu_torch.protocol.runner import run_in_process
+
+torch.set_num_threads(1)
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def small_params(**over):
+    base = dict(
+        server_set_size=300, client_set_size=12, intersection_set_size=5,
+        hash_seed=987654321, item_seed=123456789, bit_size=16, fhe=True,
+        batched=True, ring_dim=128, num_limbs=8,
+    )
+    base.update(over)
+    return PSIParams(**base)
+
+
+def small_ht(**over):
+    base = dict(
+        each_simple_table_size=32, each_cuckoo_table_size=12,
+        n_simple_hash_functions=2, n_cuckoo_hash_functions=2,
+        max_items_per_position=4,
+    )
+    base.update(over)
+    return HashTableParams(**base)
+
+
+@pytest.mark.parametrize("queries", [1, 2])
+@pytest.mark.parametrize("bits", [16, 32])
+def test_port_run_in_process(capsys, queries, bits):
+    psi = small_params(num_queries=queries, bit_size=bits, num_limbs=8 if bits == 16 else 10)
+    client, server, ok = run_in_process(psi, small_ht(), device="cpu")
+    assert ok and "Set matches!" in capsys.readouterr().out
+    assert len(client.intersection_calculated) == 5
+    assert server.pie.mul_limbs < server.ctx.L
+    assert set(client.measurements) == {"Setup", "Offline", "Online"}
+    assert client.measurements["Online"].bytes_out > 0
+
+
+def test_port_run_in_process_empty_intersection():
+    client, _, ok = run_in_process(
+        small_params(intersection_set_size=0, client_set_size=8), small_ht(),
+        device="cpu",
+    )
+    assert ok and len(client.intersection_calculated) == 0
+
+
+def test_port_run_in_process_one_cuckoo_hash():
+    """H = 1: no cross-hash product, the masked position sum ships as is."""
+    client, server, ok = run_in_process(
+        small_params(), small_ht(n_cuckoo_hash_functions=1, max_items_per_position=8),
+        device="cpu",
+    )
+    assert ok and len(client.intersection_calculated) == 5
+    assert server.pie.mul_limbs is None
+
+
+def _mixed(client_cls, server_cls, psi, ht, client_kw, server_kw):
+    """One client/server pair over a serializing loopback channel."""
+    def data():
+        return RandomDataInput(psi.server_set_size, psi.client_set_size,
+                               psi.intersection_set_size, psi.item_seed, psi.bit_size)
+
+    ch_c, ch_s = LoopbackChannel.pair(pass_device_arrays=False)
+    client = client_cls(data(), psi, ht, ch_c, **client_kw)
+    server = server_cls(data(), psi, ht, ch_s, **server_kw)
+    errors = []
+
+    def serve():
+        try:
+            server.run()
+        except BaseException as e:  # surface in the main thread
+            errors.append(e)
+            ch_s.poison()
+
+    th = threading.Thread(target=serve, daemon=True)
+    th.start()
+    try:
+        ok = client.run()
+    finally:
+        th.join(timeout=600)
+    if errors:
+        raise errors[0]
+    return client, server, ok
+
+
+@pytest.mark.parametrize("direction", ["jax_client_port_server", "port_client_jax_server"])
+@pytest.mark.parametrize("queries", [1, 2])
+def test_mixed_jax_and_port(capsys, direction, queries):
+    psi, ht = small_params(num_queries=queries, bit_size=32, num_limbs=10), small_ht()
+    cpu = {"device": "cpu"}
+    if direction == "jax_client_port_server":
+        pair = (j_proto.BatchedFHEPSIClient, t_proto.BatchedFHEPSIServer, {}, cpu)
+    else:
+        pair = (t_proto.BatchedFHEPSIClient, j_proto.BatchedFHEPSIServer, cpu, {})
+    client, _, ok = _mixed(*pair[:2], psi, ht, *pair[2:])
+    assert ok and "Set matches!" in capsys.readouterr().out
+    assert len(client.intersection_calculated) == 5
+
+
+def test_port_slice_runs_without_jax():
+    """A fresh interpreter imports the port, runs its small CPU slice, and
+    never loads jax."""
+    code = (
+        "import sys\n"
+        "from nested_hashing_psi_tpu.config import HashTableParams, PSIParams\n"
+        "from nested_hashing_psi_tpu_torch.protocol.runner import run_in_process\n"
+        "import nested_hashing_psi_tpu_torch.cli, nested_hashing_psi_tpu_torch.convert\n"
+        f"psi = PSIParams(**{dataclasses.asdict(small_params())!r})\n"
+        f"ht = HashTableParams(**{dataclasses.asdict(small_ht())!r})\n"
+        "_, _, ok = run_in_process(psi, ht, device='cpu')\n"
+        "assert ok\n"
+        "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n"
+        "print('NO_JAX_OK')\n"
+    )
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert "Set matches!" in res.stdout and "NO_JAX_OK" in res.stdout
+
+
+def test_cuda_device_without_gpu_raises():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: --device cuda is valid here")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        run_in_process(small_params(), small_ht(), device="cuda")
+    assert cli.parse_args(["-F", "--batched"])[2] == "cuda"
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli.main(["client", "-F", "--batched", "--port", "1"])
+
+
+def test_unported_options_raise():
+    with pytest.raises(NotImplementedError):
+        run_in_process(small_params(bgv=True), small_ht(), device="cpu")
+    with pytest.raises(NotImplementedError):
+        run_in_process(small_params(stream_chunks=4), small_ht(), device="cpu")
+    with pytest.raises(NotImplementedError):
+        run_in_process(small_params(fhe=False), small_ht(), device="cpu")
+
+
+def test_cli_two_processes_over_tcp():
+    """The port's CLI as two OS processes on localhost, --device cpu."""
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    flags = ["-F", "--batched", "-B", "16", "-S", "300", "-C", "12", "-I", "5",
+             "-e", "32", "-E", "12", "-b", "4", "--ringDim", "128",
+             "--numLimbs", "8", "--port", str(port), "--device", "cpu"]
+    cmd = [sys.executable, "-m", "nested_hashing_psi_tpu_torch.cli"]
+    server = subprocess.Popen(cmd + ["server"] + flags, cwd=REPO,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        client = subprocess.run(cmd + ["client"] + flags, cwd=REPO,
+                                capture_output=True, text=True, timeout=300)
+        assert client.returncode == 0, client.stderr[-3000:]
+        assert "Set matches!" in client.stdout
+        assert server.wait(timeout=120) == 0
+    finally:
+        if server.poll() is None:
+            server.kill()
+            server.wait()
