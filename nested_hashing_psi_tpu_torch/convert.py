@@ -22,6 +22,18 @@ def from_numpy(a, device) -> torch.Tensor:
     return torch.from_numpy(a.view(np.int32).copy()).to(device)
 
 
+def to_device_async(a, device) -> torch.Tensor:
+    """Like from_numpy, but for a GPU the host copy goes to pinned memory and
+    the upload is enqueued on the current stream without waiting for it."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return from_numpy(a, device)
+    a = np.ascontiguousarray(np.asarray(a, dtype=np.uint32))
+    host = torch.empty(a.shape, dtype=torch.int32, pin_memory=True)
+    host.numpy()[...] = a.view(np.int32)
+    return host.to(device, non_blocking=True)
+
+
 def to_numpy(t: torch.Tensor) -> np.ndarray:
     """int32 residue tensor -> uint32 numpy array (the wire dtype)."""
     return np.ascontiguousarray(t.detach().cpu().numpy()).view(np.uint32)
@@ -53,8 +65,8 @@ def pie_tables_to_numpy(pie) -> tuple[np.ndarray, np.ndarray]:
 
 
 def load_pie_tables(pie, table_pt, mask_pt) -> None:
-    """Replace a port BatchedFHEPIE's packed table and masks by the given
-    (e.g. the JAX package's) uint32 arrays, on the PIE's device."""
-    device = pie.table_pt.device
-    pie.table_pt = from_numpy(table_pt, device)
-    pie.mask_pt = from_numpy(mask_pt, device)
+    """Overwrite a port BatchedFHEPIE's packed table and masks with the given
+    (e.g. the JAX package's) uint32 arrays, in place (a host-resident table
+    keeps its host layout)."""
+    pie.table_pt.copy_(from_numpy(table_pt, pie.table_pt.device))
+    pie.mask_pt.copy_(from_numpy(mask_pt, pie.mask_pt.device))

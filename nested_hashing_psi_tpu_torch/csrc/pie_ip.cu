@@ -9,6 +9,10 @@
 // nested_hashing_psi_tpu_torch/ops/pie_kernels.py. The layouts of the public
 // function are kept: idx (H, P, 2, L, N), pt (H, D, P, L, N) -> out
 // (H, D, 2, L, N); the TPU kernel's limb-major transpose is not needed.
+// The table may be wider than the index: with pt (H, D, P_full, L, N) the
+// kernel reads positions [p0, p0 + P) of it in place, so a streamed chunk of
+// the index is summed against its slice of the table without a copy
+// (p0 = 0, P_full = P is the whole table).
 //
 // What bounds it on an H100: the packed table pt is read exactly once and is
 // by far the largest operand (H*D*P*L*N*4 B: ~113 MB at the 2^20-server
@@ -39,7 +43,7 @@ __global__ void pie_ip_kernel(const uint32_t* __restrict__ idx,
                               uint32_t* __restrict__ out,
                               const uint32_t* __restrict__ primes,
                               const uint32_t* __restrict__ pinvs, int H, int D,
-                              int P, int L, int N) {
+                              int P, int L, int N, int p0, int P_full) {
   extern __shared__ uint32_t s_idx[];  // (2P, blockDim)
   const long long col = static_cast<long long>(blockIdx.x) * blockDim.x +
                         threadIdx.x;
@@ -62,9 +66,10 @@ __global__ void pie_ip_kernel(const uint32_t* __restrict__ idx,
   const uint32_t q = primes[l];
   const uint32_t qinv = pinvs[l];
   for (int d = 0; d < D; ++d) {
-    // pt[h, d, p, l, n]
-    const uint32_t* tb = pt + (static_cast<size_t>(h) * D + d) * P * LN +
-                         static_cast<size_t>(l) * N + n;
+    // pt[h, d, p0 + p, l, n]
+    const uint32_t* tb =
+        pt + ((static_cast<size_t>(h) * D + d) * P_full + p0) * LN +
+        static_cast<size_t>(l) * N + n;
     uint32_t acc0 = 0, acc1 = 0;
     for (int p = 0; p < P; ++p) {
       const uint32_t w = tb[static_cast<size_t>(p) * LN];
@@ -87,9 +92,12 @@ __global__ void pie_ip_kernel(const uint32_t* __restrict__ idx,
 
 extern "C" int nhpsi_pie_ip(const void* idx, const void* pt, void* out,
                             const void* primes, const void* pinvs, int H,
-                            int D, int P, int L, int N, void* stream) {
+                            int D, int P, int L, int N, int p0, int P_full,
+                            void* stream) {
   const long long cols = static_cast<long long>(H) * L * N;
   if (cols <= 0 || D <= 0) return 0;
+  if (p0 < 0 || P < 0 || p0 + P > P_full)
+    return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = sizeof(uint32_t) * 2 * static_cast<size_t>(P) * kThreads;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
@@ -102,6 +110,6 @@ extern "C" int nhpsi_pie_ip(const void* idx, const void* pt, void* out,
   pie_ip_kernel<<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(idx), static_cast<const uint32_t*>(pt),
       static_cast<uint32_t*>(out), static_cast<const uint32_t*>(primes),
-      static_cast<const uint32_t*>(pinvs), H, D, P, L, N);
+      static_cast<const uint32_t*>(pinvs), H, D, P, L, N, p0, P_full);
   return static_cast<int>(cudaGetLastError());
 }

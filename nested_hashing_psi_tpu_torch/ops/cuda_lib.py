@@ -1,9 +1,10 @@
 """Build and load the port's CUDA kernels (csrc/*.cu) as one shared library.
 
-The sources are compiled with nvcc for sm_90a into a plain-C shared library
-under ``build/nhpsi_torch/`` at the repository root, at first use, and loaded
-with ctypes (no PyTorch headers: the build takes seconds). The library is
-rebuilt when any source is newer than it. Nothing here runs at import time:
+The sources are compiled with nvcc for sm_90a, one nvcc process per source,
+all started together, then linked into a plain-C shared library under
+``build/nhpsi_torch/`` at the repository root, at first use, and loaded with
+ctypes (no PyTorch headers: the build takes seconds). The library is rebuilt
+when any source is newer than it. Nothing here runs at import time:
 ``get_lib`` is called by the kernel wrappers when they are handed a CUDA
 tensor, and it raises if nvcc or the build fails -- there is no fallback.
 """
@@ -23,7 +24,7 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "nhpsi_torch")
 LIB_PATH = os.path.join(BUILD_DIR, "libnhpsi_torch_kernels.so")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 ]
 
 _lock = threading.Lock()
@@ -36,8 +37,10 @@ _SIGNATURES = {
     "nhpsi_ntt_fwd": [_P, _P, _P, _P, _I, _I, _I, _P],
     # (x, y, ipsi, ninv, primes, rows, L, logn, stream)
     "nhpsi_ntt_inv": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
-    # (idx, pt, out, primes, pinvs, H, D, P, L, N, stream)
-    "nhpsi_pie_ip": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # (idx, pt, out, primes, pinvs, H, D, P, L, N, p0, P_full, stream)
+    "nhpsi_pie_ip": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # (x, y, tmp, ga, gb, tw, rc, primes, pinvs, rows, L, m1, m2, inverse, stream)
+    "nhpsi_ntt_mxu": [_P] * 9 + [_I] * 5 + [_P],
 }
 
 
@@ -56,20 +59,35 @@ def sources() -> list[str]:
     return sorted(glob.glob(os.path.join(CSRC, "*.cu")))
 
 
+def _run_all(cmds: list[list[str]]) -> str:
+    """Run the commands concurrently; raise if any fails. Returns their
+    combined output."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for c in cmds]
+    outs = [(c, p.communicate()[0], p.returncode) for c, p in zip(cmds, procs)]
+    failed = [f"{' '.join(c)}\n{out}" for c, out, rc in outs if rc != 0]
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    return "".join(out for _, out, _ in outs)
+
+
 def build(verbose: bool = False) -> str:
-    """Compile csrc/*.cu into LIB_PATH (atomically replaced). Returns the
-    compiler's output (register/spill report with verbose=True)."""
+    """Compile csrc/*.cu (one nvcc per source, in parallel) and link them
+    into LIB_PATH (atomically replaced). Returns the compiler's output
+    (register/spill report with verbose=True)."""
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{LIB_PATH}.{os.getpid()}.tmp"
-    cmd = [find_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", tmp, *sources()]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({res.returncode}):\n{res.stdout}\n{res.stderr}"
-        )
+    nvcc, tag = find_nvcc(), f"{os.getpid()}.tmp"
+    objs = [os.path.join(BUILD_DIR, f"{os.path.basename(s)}.{tag}.o") for s in sources()]
+    out = _run_all([
+        [nvcc, *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []), "-c", s, "-o", o]
+        for s, o in zip(sources(), objs)
+    ])
+    tmp = f"{LIB_PATH}.{tag}"
+    out += _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs]])
+    for o in objs:
+        os.remove(o)
     os.replace(tmp, LIB_PATH)
-    return res.stdout + res.stderr
+    return out
 
 
 def _stale() -> bool:

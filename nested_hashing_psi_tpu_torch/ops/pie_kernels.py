@@ -5,7 +5,9 @@
 Counterpart of ``nested_hashing_psi_tpu.ops.pie_kernels``:
 ``indexed_inner_product`` launches the CUDA kernel (csrc/pie_ip.cu) on CUDA
 tensors and takes ``indexed_inner_product_plain`` on CPU tensors only.
-``launches`` counts kernel launches.
+``launches`` counts kernel launches. With ``p0`` the index covers positions
+[p0, p0 + P) of a wider table, which the kernel reads in place (the
+streamed upload's chunks); without it the widths must match.
 """
 
 from __future__ import annotations
@@ -29,26 +31,35 @@ def _u32_bits(c: torch.Tensor) -> torch.Tensor:
     return torch.where(c >= 2**31, c - 2**32, c).int().contiguous()
 
 
-def indexed_inner_product_plain(idx, pt, p, pinv):
+def indexed_inner_product_plain(idx, pt, p, pinv, p0: int | None = None):
     """Plain PyTorch version (materializes the (H, D, P, 2, L, N) products)."""
+    if p0 is not None:
+        pt = pt[:, :, p0 : p0 + idx.shape[1]]
     prod = mont_mul(idx[:, None], pt[..., None, :, :], p, pinv)
     return modsum(prod, p, axis=2)
 
 
 def indexed_inner_product(
     idx: torch.Tensor,   # (H, P, 2, L, N) int32 ciphertext residues
-    pt: torch.Tensor,    # (H, D, P, L, N) int32 Montgomery plaintexts
+    pt: torch.Tensor,    # (H, D, P_full, L, N) int32 Montgomery plaintexts
     p: torch.Tensor,     # (L, 1) int64 primes
     pinv: torch.Tensor,  # (L, 1) int64 Montgomery constants
+    p0: int | None = None,  # idx position 0 is table position p0
 ) -> torch.Tensor:
-    """-> (H, D, 2, L, N) int32: the per-depth, per-hash inner products."""
+    """-> (H, D, 2, L, N) int32: the per-depth, per-hash inner products over
+    table positions [p0, p0 + P) (over the whole table, P_full = P, when p0
+    is None)."""
     global launches
     if idx.dim() != 5 or pt.dim() != 5:
         raise ValueError(f"idx {tuple(idx.shape)} / pt {tuple(pt.shape)} must be 5-d")
     H, P, k, L, N = idx.shape
-    D = pt.shape[1]
-    if k != 2 or tuple(pt.shape) != (H, D, P, L, N):
-        raise ValueError(f"idx {tuple(idx.shape)} does not match pt {tuple(pt.shape)}")
+    D, P_full = pt.shape[1], pt.shape[2]
+    start = 0 if p0 is None else p0
+    if (k != 2 or tuple(pt.shape) != (H, D, P_full, L, N)
+            or not 0 <= start <= P_full - P or (p0 is None and P_full != P)):
+        raise ValueError(
+            f"idx {tuple(idx.shape)} at position {p0} does not match pt {tuple(pt.shape)}"
+        )
     if idx.dtype != torch.int32 or pt.dtype != torch.int32:
         raise TypeError("idx and pt must be int32 residues")
     if idx.device != pt.device:
@@ -56,14 +67,14 @@ def indexed_inner_product(
     if not idx.is_cuda:
         if idx.device.type != "cpu":
             raise ValueError(f"no position sum for device {idx.device}")
-        return indexed_inner_product_plain(idx, pt, p, pinv)
+        return indexed_inner_product_plain(idx, pt, p, pinv, p0)
     idx, pt = idx.contiguous(), pt.contiguous()
     out = torch.empty((H, D, 2, L, N), dtype=torch.int32, device=idx.device)
     primes = _u32_bits(p.to(idx.device))
     pinvs = _u32_bits(pinv.to(idx.device))
     rc = cuda_lib.get_lib().nhpsi_pie_ip(
         idx.data_ptr(), pt.data_ptr(), out.data_ptr(),
-        primes.data_ptr(), pinvs.data_ptr(), H, D, P, L, N,
+        primes.data_ptr(), pinvs.data_ptr(), H, D, P, L, N, start, P_full,
         torch.cuda.current_stream(idx.device).cuda_stream,
     )
     cuda_lib.check(rc, "indexed_inner_product")

@@ -11,9 +11,10 @@ depth decrypting to 0 means the client's item in cuckoo slot c is in the
 intersection.
 
 The position sum is K2 (``ops.pie_kernels``); every transform is K1. Ported:
-the BFV rescaled-mult pipeline (and the trivial H = 1 case). The leveled BGV
-chain, the unrescaled cross-hash product, the streamed upload and the
-host-resident table are not ported and raise ``NotImplementedError``.
+the BFV rescaled-mult pipeline (and the trivial H = 1 case), the streamed
+upload (``run_streamed``) and the host-resident table (``host_table=True``,
+``_run_host_table``). The leveled BGV chain and the unrescaled cross-hash
+product are not ported and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -58,9 +59,11 @@ def batched_pie_forward(
     )
 
 
-def position_sum(ctx: BFVContext, idx_data, table_pt) -> torch.Tensor:
-    """Per-(hash, depth) position-summed ct x pt products: (H, D, 2, L, N)."""
-    return indexed_inner_product(idx_data, table_pt, ctx.p, ctx.pinv)
+def position_sum(ctx: BFVContext, idx_data, table_pt, p0: int | None = None) -> torch.Tensor:
+    """Per-(hash, depth) position-summed ct x pt products: (H, D, 2, L, N);
+    with p0, over table positions [p0, p0 + idx_data.shape[1]), read in
+    place."""
+    return indexed_inner_product(idx_data, table_pt, ctx.p, ctx.pinv, p0)
 
 
 def combine_ip(
@@ -104,7 +107,15 @@ def combine_ip(
 class BatchedFHEPIE(nn.Module):
     """Server-side engine over the whole nested table. ``table_pt``,
     ``mask_pt`` and the relin key are buffers on the context's device;
-    ``forward(idx, minus)`` is the online step on ciphertext data."""
+    ``forward(idx, minus)`` is the online step on ciphertext data.
+
+    ``host_table=True`` keeps the packed table in host memory (pinned when
+    the context is on a GPU) for tables beyond what the device should hold;
+    the online step then uploads it in position slices. Its host layout is
+    position-major, (P, H, D, L, N), so that every slice of positions is one
+    contiguous block (an asynchronous copy of a strided slice is neither
+    asynchronous nor from pinned memory); ``table_pt`` is the (H, D, P, L, N)
+    view of it."""
 
     def __init__(
         self,
@@ -113,6 +124,7 @@ class BatchedFHEPIE(nn.Module):
         rlk: RelinKey,
         mask_seed: int | None = None,
         encode_slab: int = 2048,
+        host_table: bool = False,
     ):
         super().__init__()
         if hct.server_stash_size != 0:
@@ -160,17 +172,32 @@ class BatchedFHEPIE(nn.Module):
         # packed encode on the host in bounded slabs; each slab's NTT is K1
         flat = slots.reshape(self.H * self.D * self.P, self.batch_slots)
         DP = self.D * self.P
+        self.host_table = host_table
+        if host_table:
+            host = torch.empty(
+                (self.P, self.H * self.D, ctx.L, ctx.n), dtype=torch.int32,
+                pin_memory=ctx.device.type == "cuda",
+            )
         slabs = []
         for s in range(0, flat.shape[0], encode_slab):
             chunk = flat[s : s + encode_slab].astype(object)
             # row r -> (h, d, p); h == 0 iff r < D*P
             for r in range(s, min(s + len(chunk), DP)):
                 chunk[r - s] = chunk[r - s] * mask_obj[r // self.P] % t_obj
-            slabs.append(ctx.make_plaintext_mont(chunk))
-        pt = slabs[0] if len(slabs) == 1 else torch.cat(slabs, dim=0)
-        self.register_buffer(
-            "table_pt", pt.reshape(self.H, self.D, self.P, ctx.L, ctx.n)
-        )
+            pt = ctx.make_plaintext_mont(chunk)
+            if host_table:
+                rows = torch.arange(s, s + len(chunk))
+                host[rows % self.P, rows // self.P] = pt.cpu()
+            else:
+                slabs.append(pt)
+        if host_table:
+            pt = host.view(self.P, self.H, self.D, ctx.L, ctx.n).permute(1, 2, 0, 3, 4)
+        else:
+            pt = (slabs[0] if len(slabs) == 1 else torch.cat(slabs, dim=0)).reshape(
+                self.H, self.D, self.P, ctx.L, ctx.n
+            )
+        self.register_buffer("table_pt", pt)
+        self._copy_stream = None
 
     @property
     def rlk(self) -> RelinKey:
@@ -202,10 +229,98 @@ class BatchedFHEPIE(nn.Module):
 
     def forward(self, idx: torch.Tensor, minus: torch.Tensor) -> Ciphertext:
         """idx: (H, P, 2, L, N); minus: (2, L, N) -> result (D, 2, L', N)."""
+        if self.host_table:
+            return self._run_host_table(Ciphertext(idx, "bfv"), Ciphertext(minus, "bfv"))
         return batched_pie_forward(
             self.ctx, self.rlk, idx, minus, self.table_pt, self.mask_pt,
             mul_limbs=self.mul_limbs, ship_limbs=self.ship_limbs,
         )
+
+    def _combine(self, ip: torch.Tensor, minus_data: torch.Tensor) -> Ciphertext:
+        return combine_ip(
+            self.ctx, self.rlk, ip, minus_data, self.mask_pt,
+            mul_limbs=self.mul_limbs, ship_limbs=self.ship_limbs,
+        )
+
+    def _host_positions(self) -> torch.Tensor:
+        """The host table as the contiguous (P, H, D, L, N) tensor it is."""
+        return self.table_pt.permute(2, 0, 1, 3, 4)
+
+    def _upload(self, p0: int, w: int) -> torch.Tensor:
+        """Positions [p0, p0 + w) of the host table on the device, as an
+        (H, D, w, L, N) tensor (on the current stream)."""
+        part = self._host_positions()[p0 : p0 + w]
+        return part.to(self.ctx.device, non_blocking=True).permute(1, 2, 0, 3, 4).contiguous()
+
+    def _run_host_table(
+        self, index_cts: Ciphertext, minus_ct: Ciphertext,
+        pos_chunk: int | None = None,
+    ) -> Ciphertext:
+        """Online step with the packed table in host memory: equal-width
+        position slices are uploaded and position-summed (K2) one by one and
+        the partial sums accumulated, then the combine stage runs on the
+        device. On a GPU each upload runs on a copy stream into one of two
+        device buffers, so slice k+1 crosses the bus while K2 works on slice
+        k; events order each buffer's reuse. Default slice: the widest
+        divisor of P whose slice stays within 2 GiB."""
+        ctx, P = self.ctx, self.P
+        if pos_chunk is None:
+            per_pos = self.H * self.D * ctx.L * ctx.n * 4
+            pos_chunk = max(1, min(P, (2 << 30) // per_pos))
+        while P % pos_chunk:
+            pos_chunk -= 1
+        idx, w = index_cts.data, pos_chunk
+        starts = range(0, P, w)
+        ip = None
+        if ctx.device.type != "cuda":
+            for p0 in starts:
+                part = position_sum(ctx, idx[:, p0 : p0 + w], self._upload(p0, w))
+                ip = part if ip is None else add_mod(ip, part, ctx.p)
+            return self._combine(ip, minus_ct.data)
+        host = self._host_positions()
+        compute = torch.cuda.current_stream(ctx.device)
+        if self._copy_stream is None:
+            self._copy_stream = torch.cuda.Stream(ctx.device)
+        copy = self._copy_stream
+        nbuf = min(2, len(starts))
+        bufs = [torch.empty_like(host[:w], device=ctx.device) for _ in range(nbuf)]
+        loaded = [torch.cuda.Event() for _ in range(nbuf)]
+        freed = [torch.cuda.Event() for _ in range(nbuf)]
+        copy.wait_stream(compute)  # the buffers' memory may still be in use there
+        for k, p0 in enumerate(starts):
+            b = k % nbuf
+            with torch.cuda.stream(copy):
+                if k >= nbuf:
+                    copy.wait_event(freed[b])  # K2 is done with slice k - 2
+                bufs[b].copy_(host[p0 : p0 + w], non_blocking=True)
+                loaded[b].record(copy)
+            compute.wait_event(loaded[b])
+            tbl = bufs[b].permute(1, 2, 0, 3, 4).contiguous()
+            freed[b].record(compute)
+            part = position_sum(ctx, idx[:, p0 : p0 + w], tbl)
+            ip = part if ip is None else add_mod(ip, part, ctx.p)
+        return self._combine(ip, minus_ct.data)
+
+    def run_streamed(self, chunks, minus_ct: Ciphertext) -> Ciphertext:
+        """Online step over the index ciphertexts as they arrive.
+
+        chunks: iterable of (p0, idx_chunk), idx_chunk an (H, w, 2, L, N)
+        slice of the index ciphertexts starting at inner position p0 (host
+        or device tensor). Each chunk's position sum (K2 over the table's
+        positions [p0, p0 + w), read in place) is enqueued as it arrives and
+        nothing synchronises, so the device works on chunk k while the
+        caller reads chunk k+1; the partial sums accumulate mod q, then
+        combine_ip runs once."""
+        ctx = self.ctx
+        ip = None
+        for p0, idx_chunk in chunks:
+            idx_chunk = idx_chunk.to(ctx.device, non_blocking=True)
+            if self.host_table:
+                part = position_sum(ctx, idx_chunk, self._upload(p0, idx_chunk.shape[1]))
+            else:
+                part = position_sum(ctx, idx_chunk, self.table_pt, p0)
+            ip = part if ip is None else add_mod(ip, part, ctx.p)
+        return self._combine(ip, minus_ct.data)
 
     def run(self, index_cts: Ciphertext, minus_ct: Ciphertext) -> Ciphertext:
         return self(index_cts.data, minus_ct.data)

@@ -4,10 +4,13 @@ Counterpart of ``nested_hashing_psi_tpu.protocol.batched_fhe`` with the same
 phases and the same wire frames (scheme-params vector, relin key, minus and
 index ciphertexts, result meta + result ciphertexts, all uint32 tensors), so
 a port party can talk to a JAX party. Each party computes on an explicit
-``device``; "cuda" raises when no GPU is present. The client decrypts on the
-host (the JAX package's off-TPU branch). Not ported, raising
-``NotImplementedError``: --bgv, --streamChunks > 1, the host-resident table
-(tables above 5 GB), and the on-device decrypt.
+``device``; "cuda" raises when no GPU is present. On a GPU the client
+decrypts on the device straight to the zero mask (``fhe.device_decrypt``, the
+JAX package's on-chip branch); on the CPU it decrypts on the host.
+``--streamChunks`` sends the index ciphertexts in chunks that the server
+position-sums as they arrive, and a packed table above 5 GB stays in host
+memory (``BatchedFHEPIE(host_table=True)``). Not ported, raising
+``NotImplementedError``: --bgv.
 """
 
 from __future__ import annotations
@@ -29,9 +32,12 @@ from nested_hashing_psi_tpu_torch.convert import (
     ciphertext_from_numpy,
     from_numpy,
     relin_key_from_numpy,
+    to_device_async,
     to_numpy,
 )
 from nested_hashing_psi_tpu_torch.fhe.bfv import make_context
+from nested_hashing_psi_tpu_torch.fhe.bgv import Ciphertext
+from nested_hashing_psi_tpu_torch.fhe.device_decrypt import DeviceDecryptor
 from nested_hashing_psi_tpu_torch.fhe.params import (
     SchemeParams,
     bfv_batched_client_limbs,
@@ -86,6 +92,7 @@ class BatchedFHEPSIClient(PSIClientBase):
         super().__init__(data, params, channel, PROTOCOL_NAME, **kw)
         self.ht = ht
         self.device = resolve_device(device)
+        self._decryptors: dict[int, DeviceDecryptor] = {}
 
     def run_setup_phase(self) -> None:
         p, ht = self.params, self.ht
@@ -93,8 +100,6 @@ class BatchedFHEPSIClient(PSIClientBase):
             raise ValueError(
                 f"batch slots {ht.batch_slots} exceed ring dim {p.ring_dim}"
             )
-        if p.stream_chunks > 1:
-            raise NotImplementedError("--streamChunks > 1 is not ported yet")
         self.hasher = TabulationHashing(
             p.hash_seed, ht.n_simple_hash_functions + ht.n_cuckoo_hash_functions
         )
@@ -130,27 +135,51 @@ class BatchedFHEPSIClient(PSIClientBase):
         self.idx_ct, self.minus_ct = self.client_ops.encrypt_query(self.sk)
         _sync(self.device)  # the offline phase owns this cost
 
-    def _read_and_decrypt(self):
-        """Read the result frames and decrypt on the host (a result on a
-        smaller basis is decrypted in the matching child context)."""
+    def _effective_chunks(self) -> int:
+        """Largest divisor of the inner position count <= the requested
+        stream_chunks (the server sums equal-width chunks)."""
+        P = self.ht.each_cuckoo_table_size
+        n = max(1, min(self.params.stream_chunks, P))
+        while P % n:
+            n -= 1
+        return n
+
+    def _read_and_decrypt(self) -> np.ndarray:
+        """Read the result frames and decrypt them to the per-slot zero mask
+        (..., D, batch), in the context of the result's limb count. On a GPU
+        the decrypt runs on the device (noise_bits only with --verbose,
+        which adds the host decrypt); on the CPU it is the host decrypt."""
         meta = self.channel.read_tensor()
         form = "bgv" if int(meta[0]) else "bfv"
         result = ciphertext_from_numpy(
             self.channel.read_tensor(), self.device, form, int(meta[1])
         )
-        slots, self.noise_bits = self.ctx.decrypt(
-            result, self.sk, length=self.ht.batch_slots
-        )
-        return slots
+        n_limbs = result.data.shape[-2]
+        dctx = self.ctx.context_for_limbs(n_limbs)
+        dsk = self.ctx.shrink_key_to(self.sk, n_limbs)
+        length = self.ht.batch_slots
+        if self.device.type == "cuda" and result.form == "bfv":
+            if n_limbs not in self._decryptors:
+                self._decryptors[n_limbs] = DeviceDecryptor(dctx)
+            mask = self._decryptors[n_limbs].zero_mask(result.data, dsk.s_mont, length)
+            self.noise_bits = None
+            if self.params.verbose:
+                _, self.noise_bits = dctx.decrypt(result, dsk, length=length)
+            return mask.cpu().numpy()
+        slots, self.noise_bits = dctx.decrypt(result, dsk, length=length)
+        return np.asarray(slots, dtype=object) == 0
 
     def run_online_phase(self) -> None:
         if self.params.num_queries > 1:
             return self._run_online_many(self.params.num_queries)
         self.channel.write_tensor(to_numpy(self.minus_ct.data))
-        self.channel.write_tensor(np.array([1], np.uint64))  # one chunk
-        self.channel.write_tensor(to_numpy(self.idx_ct.data))
-        self.intersection_calculated = self.client_ops.extract_intersection(
-            np.asarray(self._read_and_decrypt())
+        n_chunks = self._effective_chunks()
+        self.channel.write_tensor(np.array([n_chunks], np.uint64))
+        w = self.ht.each_cuckoo_table_size // n_chunks
+        for c in range(n_chunks):
+            self.channel.write_tensor(to_numpy(self.idx_ct.data[:, c * w : (c + 1) * w]))
+        self.intersection_calculated = self.client_ops.extract_intersection_mask(
+            self._read_and_decrypt()
         )
 
     def _run_online_many(self, Q: int) -> None:
@@ -158,8 +187,7 @@ class BatchedFHEPSIClient(PSIClientBase):
         every query's zero mask agrees before extracting."""
         self.channel.write_tensor(to_numpy(torch.stack([self.minus_ct.data] * Q)))
         self.channel.write_tensor(to_numpy(torch.stack([self.idx_ct.data] * Q)))
-        slots = self._read_and_decrypt()  # (Q, D, batch)
-        per_q = (np.asarray(slots, dtype=object) == 0).any(axis=1)  # (Q, batch)
+        per_q = self._read_and_decrypt().any(axis=1)  # (Q, D, batch) -> (Q, batch)
         if not (per_q == per_q[0]).all():
             raise ValueError("multi-query results disagree across the batch")
         self.intersection_calculated = self.client_ops.extract_intersection_mask(
@@ -203,12 +231,10 @@ class BatchedFHEPSIServer(PSIServerBase):
             ht.n_cuckoo_hash_functions * ht.max_items_per_position
             * ht.each_cuckoo_table_size * ctx.L * ctx.n * 4
         )
-        if table_bytes > HOST_TABLE_BYTES:
-            raise NotImplementedError(
-                f"packed table of {table_bytes} B: the host-resident table "
-                "path (tables above 5 GB) is not ported yet"
-            )
-        self.pie = BatchedFHEPIE(ctx, self.server_table, self.rlk)
+        self.pie = BatchedFHEPIE(
+            ctx, self.server_table, self.rlk,
+            host_table=table_bytes > HOST_TABLE_BYTES,
+        )
         _sync(self.device)
         self.offline_computation_us = (time.monotonic_ns() - begin) // 1000
 
@@ -223,12 +249,22 @@ class BatchedFHEPSIServer(PSIServerBase):
                 f"invalid stream chunk count {n_chunks} from client "
                 f"(must divide the inner position count {P})"
             )
-        if n_chunks != 1:
-            raise NotImplementedError("streamed upload (--streamChunks > 1) is not ported yet")
-        idx = from_numpy(self.channel.read_tensor(), self.device)
         minus = from_numpy(minus_raw, self.device)
-        begin = time.monotonic_ns()
-        result = self.pie(idx, minus)
+        if n_chunks == 1:
+            idx = from_numpy(self.channel.read_tensor(), self.device)
+            begin = time.monotonic_ns()
+            result = self.pie(idx, minus)
+        else:
+            begin = time.monotonic_ns()
+            # each chunk's position sum is enqueued as it arrives, so the
+            # device works while the next chunk is read off the wire
+            w = P // n_chunks
+
+            def chunks():
+                for c in range(n_chunks):
+                    yield c * w, to_device_async(self.channel.read_tensor(), self.device)
+
+            result = self.pie.run_streamed(chunks(), Ciphertext(minus, "bfv"))
         _sync(self.device)
         self.online_computation_us = (time.monotonic_ns() - begin) // 1000
         self.channel.write_tensor(

@@ -133,6 +133,69 @@ def test_run_many_matches_run(setup):
     assert torch.equal(many[0], one) and torch.equal(many[1], one)
 
 
+def _query(setup):
+    return (convert.from_numpy(np.asarray(setup["idx"].data), "cpu"),
+            convert.from_numpy(np.asarray(setup["minus"].data), "cpu"))
+
+
+@pytest.mark.parametrize("width", [1, 2, 4])
+def test_run_streamed_matches_forward(setup, width):
+    """Chunks of the index summed against their table slices in place, then
+    one combine: identical to the one-shot online step."""
+    tpie = setup["tpie"]
+    i, m = _query(setup)
+    chunks = ((p0, i[:, p0 : p0 + width]) for p0 in range(0, CUCKOO_SIZE, width))
+    got = tpie.run_streamed(chunks, Ciphertext(m, "bfv"))
+    assert torch.equal(got.data, tpie(i, m).data)
+
+
+@pytest.fixture(scope="module")
+def host_pie(setup):
+    tpie = setup["tpie"]
+    return t_pie.BatchedFHEPIE(tpie.ctx, setup["hct"], tpie.rlk, mask_seed=99,
+                               encode_slab=7, host_table=True)
+
+
+def test_host_table_is_bit_identical(setup, host_pie):
+    tpie = setup["tpie"]
+    assert host_pie.table_pt.device.type == "cpu"
+    assert torch.equal(host_pie.table_pt, tpie.table_pt)
+    assert torch.equal(host_pie.mask_pt, tpie.mask_pt)
+    # position-major host layout: every slice of positions is contiguous
+    assert host_pie._host_positions().is_contiguous()
+
+
+@pytest.mark.parametrize("pos_chunk", [None, 1, 2, 4, 3])  # 3 is lowered to 2
+def test_host_table_run_matches_device_table(setup, host_pie, pos_chunk):
+    i, m = _query(setup)
+    got = host_pie._run_host_table(Ciphertext(i, "bfv"), Ciphertext(m, "bfv"), pos_chunk)
+    assert torch.equal(got.data, setup["tpie"](i, m).data)
+
+
+def test_host_table_run_streamed_and_many(setup, host_pie):
+    i, m = _query(setup)
+    want = setup["tpie"](i, m).data
+    assert torch.equal(host_pie.run(Ciphertext(i, "bfv"), Ciphertext(m, "bfv")).data, want)
+    chunks = ((p0, i[:, p0 : p0 + 4]) for p0 in (0, 4))
+    assert torch.equal(host_pie.run_streamed(chunks, Ciphertext(m, "bfv")).data, want)
+    many = host_pie.run_many(torch.stack([i, i]), torch.stack([m, m]))
+    assert torch.equal(many[0], want) and torch.equal(many[1], want)
+
+
+def test_host_table_matches_jax_host_table(setup, host_pie):
+    """The JAX package's host-resident PIE (same mask_seed, same slab) has
+    the same table and answers the same query bit for bit."""
+    jpie, jctx = setup["jpie"], setup["jctx"]
+    jhost = j_pie.BatchedFHEPIE(jctx, setup["hct"], jpie.rlk, mask_seed=99,
+                                host_table=True, encode_slab=7)
+    np.testing.assert_array_equal(jhost.table_pt, convert.to_numpy(host_pie.table_pt))
+    with jax.enable_x64(True):
+        want = jhost.run(setup["idx"], setup["minus"])
+    i, m = _query(setup)
+    got = host_pie.run(Ciphertext(i, "bfv"), Ciphertext(m, "bfv"))
+    np.testing.assert_array_equal(convert.to_numpy(got.data), np.asarray(want.data))
+
+
 def test_port_client_query_decrypts_to_intersection(setup):
     """The port's own client ops (its keys, its encryption) against the port
     PIE loaded with the same table: the zero slots are the intersection."""

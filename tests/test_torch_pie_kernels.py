@@ -47,6 +47,32 @@ def test_plain_matches_pallas_interpret_and_jnp(shape):
     np.testing.assert_array_equal(to_numpy(got), want_jnp)
 
 
+@pytest.mark.parametrize("p0, w", [(0, 2), (2, 3), (3, 3), (5, 1)])
+def test_slice_equals_sliced_tensors(p0, w):
+    """K2 over positions [p0, p0 + w) of the full table equals K2 (and the
+    JAX package's) on the sliced tensors."""
+    idx, pt, p, pinv = _case(2, 3, 6, 2, 128, seed=p0 + 10 * w)
+    tp, tpi = torch.from_numpy(p.astype(np.int64)), torch.from_numpy(pinv.astype(np.int64))
+    ti = from_numpy(idx[:, p0 : p0 + w], "cpu")
+    got = pie_kernels.indexed_inner_product(ti, from_numpy(pt, "cpu"), tp, tpi, p0=p0)
+    want = pie_kernels.indexed_inner_product_plain(
+        ti, from_numpy(np.ascontiguousarray(pt[:, :, p0 : p0 + w]), "cpu"), tp, tpi
+    )
+    assert torch.equal(got, want)
+    J = jnp.asarray
+    want_jax = indexed_inner_product_jnp(J(idx[:, p0 : p0 + w]), J(pt[:, :, p0 : p0 + w]), J(p), J(pinv))
+    np.testing.assert_array_equal(to_numpy(got), np.asarray(want_jax))
+
+
+def test_slice_out_of_range_raises():
+    idx, pt, p, pinv = _case(2, 3, 4, 2, 64, seed=3)
+    tp, tpi = torch.from_numpy(p.astype(np.int64)), torch.from_numpy(pinv.astype(np.int64))
+    with pytest.raises(ValueError):
+        pie_kernels.indexed_inner_product(
+            from_numpy(idx[:, :3], "cpu"), from_numpy(pt, "cpu"), tp, tpi, p0=2
+        )
+
+
 def test_wrapper_takes_plain_version_on_cpu():
     idx, pt, p, pinv = _case(2, 2, 3, 2, 64, seed=9)
     ti, tt = from_numpy(idx, "cpu"), from_numpy(pt, "cpu")

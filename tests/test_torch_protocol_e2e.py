@@ -107,6 +107,44 @@ def _mixed(client_cls, server_cls, psi, ht, client_kw, server_kw):
     return client, server, ok
 
 
+@pytest.mark.parametrize("chunks", [2, 4])
+def test_port_run_in_process_streamed(capsys, chunks):
+    """--streamChunks: the index ciphertexts cross in chunks that the server
+    position-sums as they arrive; the result verifies."""
+    psi = small_params(stream_chunks=chunks, bit_size=32, num_limbs=10)
+    client, server, ok = run_in_process(psi, small_ht(), device="cpu")
+    assert ok and "Set matches!" in capsys.readouterr().out
+    assert len(client.intersection_calculated) == 5
+    assert client._effective_chunks() == chunks
+    assert not server.pie.host_table
+
+
+def test_port_server_takes_host_table_above_threshold(monkeypatch, capsys):
+    """A packed table above HOST_TABLE_BYTES stays in host memory and the
+    run still verifies (the threshold lowered so a small table crosses it)."""
+    monkeypatch.setattr(t_proto, "HOST_TABLE_BYTES", 1024)
+    client, server, ok = run_in_process(
+        small_params(bit_size=32, num_limbs=10, stream_chunks=3), small_ht(), device="cpu"
+    )
+    assert ok and "Set matches!" in capsys.readouterr().out
+    assert server.pie.host_table and server.pie.table_pt.device.type == "cpu"
+    assert len(client.intersection_calculated) == 5
+
+
+@pytest.mark.parametrize("direction", ["jax_client_port_server", "port_client_jax_server"])
+def test_mixed_jax_and_port_streamed(capsys, direction):
+    """--streamChunks 4 across packages: the chunk frames are the same."""
+    psi, ht = small_params(stream_chunks=4, bit_size=32, num_limbs=10), small_ht()
+    cpu = {"device": "cpu"}
+    if direction == "jax_client_port_server":
+        pair = (j_proto.BatchedFHEPSIClient, t_proto.BatchedFHEPSIServer, {}, cpu)
+    else:
+        pair = (t_proto.BatchedFHEPSIClient, j_proto.BatchedFHEPSIServer, cpu, {})
+    client, _, ok = _mixed(*pair[:2], psi, ht, *pair[2:])
+    assert ok and "Set matches!" in capsys.readouterr().out
+    assert len(client.intersection_calculated) == 5
+
+
 @pytest.mark.parametrize("direction", ["jax_client_port_server", "port_client_jax_server"])
 @pytest.mark.parametrize("queries", [1, 2])
 def test_mixed_jax_and_port(capsys, direction, queries):
@@ -155,8 +193,6 @@ def test_cuda_device_without_gpu_raises():
 def test_unported_options_raise():
     with pytest.raises(NotImplementedError):
         run_in_process(small_params(bgv=True), small_ht(), device="cpu")
-    with pytest.raises(NotImplementedError):
-        run_in_process(small_params(stream_chunks=4), small_ht(), device="cpu")
     with pytest.raises(NotImplementedError):
         run_in_process(small_params(fhe=False), small_ht(), device="cpu")
 
