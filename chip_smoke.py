@@ -6,10 +6,13 @@
 1. builds the port's CUDA kernels from nested_hashing_psi_tpu_torch/csrc
    (one nvcc per source, in parallel, sm_90a) and holds each against its
    plain PyTorch version on the card at the main path's shapes (bit-exact),
-   timing both with CUDA events: K1 (NTT, q and aux bases), K2 (position
-   sum, whole table and an in-place slice p0 = 3, w = 3 of P = 12) and K3
-   (the int8 tensor-core NTT, q and aux bases, also held against K1; K3
-   has no caller on the protocol path, so its launches come from this phase);
+   timing both with CUDA events: K1 (NTT, q and aux bases, then the nine K1
+   launches of one server query, each also replayed from a CUDA graph, in
+   the form the kernel chose and in both forced forms, with its bound and
+   share of it), K2 (position sum, whole table and an in-place slice
+   p0 = 3, w = 3 of P = 12) and K3 (the int8 tensor-core NTT, q and aux
+   bases, also held against K1; K3 has no caller on the protocol path, so
+   its launches come from this phase);
 2. drives the port's main path through its user entry points
    (``cli.parse_args`` + ``protocol.runner.run_in_process``): BatchedFHE
    with BFV at the 2^20-server x 2048-client geometry, ring 16384, three
@@ -17,16 +20,23 @@
    self-verifying "Set matches!" with 1024 items found; the client decrypts
    on the device. Launch counters are reset just before each run and read
    just after it; each run must have launched K1 and K2;
-3. decrypts the one-query server's result on the device (zero mask) and on
+3. times the one-query server's online step at steady state (host clock,
+   20 queries) and traces 10 more with torch.profiler: device time per
+   query by kernel (K1, K2, the plain PyTorch kernels; K1 also by kernel
+   instance) and the device's busy share of the traced span;
+4. decrypts the one-query server's result on the device (zero mask) and on
    the host, which must agree, and times both;
-4. builds the one-query server's table twice more with one mask seed, on
+5. builds the one-query server's table twice more with one mask seed, on
    the device and host-resident (pinned, uploaded in position slices), and
    checks that run() is bit-equal, with the default slice rule and with
    pos_chunk = 3, timing each.
 
-It prints the card's name and power limit, one JSON line listing the
-kernels, and as its last line {"ok": true, "device": {...}}. Any failure
-exits non-zero without that line; so does a machine without CUDA.
+It fails if jax or the JAX package nested_hashing_psi_tpu was imported. It
+prints the card's name and power limit, one JSON line listing the kernels
+(each with its bound: the larger of its bytes over 3.35 TB/s and its
+operations over the card's peak rate for their type), and as its last line
+{"ok": true, "device": {...}}. Any failure exits non-zero without that line;
+so does a machine without CUDA.
 """
 
 from __future__ import annotations
@@ -35,6 +45,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -47,6 +58,41 @@ RUNS = (("queries=1", []), ("queries=4", ["--queries", "4"]),
         ("streamChunks=4", ["--streamChunks", "4"]))
 EXPECTED_FOUND = 1024
 MASK_SEED = 20240601
+
+# H100 SXM peaks for the bounds: 3.35 TB/s of HBM3 and 1,979 T int8
+# tensor-core ops/s (NVIDIA's data sheet). 32-bit integer instructions run
+# on two pipes of 64 lanes per clock per SM (CUDA C Programming Guide,
+# compute capability 9.0): multiplies on the FMA pipe, min/max and the
+# fused add-min on the ALU pipe, adds on either; the four schedulers issue
+# one warp instruction per clock each, 128 lanes per clock per SM in all,
+# which a mix balanced over the two pipes reaches: 128 x 132 SMs x 1.98 GHz
+# = 33.5 T ops/s.
+HBM_BYTES_S = 3.35e12
+INT8_OPS_S = 1979e12
+INT32_OPS_S = 128 * 132 * 1.98e9
+# A butterfly: a Shoup product (IMAD.HI, IMAD, IMAD on the FMA pipe; a
+# VIADDMNMX conditional subtract), an add_mod and a sub_mod (an IADD3 and a
+# VIADDMNMX each): 8 instructions, 3 of them tied to the FMA pipe and 3 to
+# the ALU pipe, so they balance.
+BUTTERFLY_OPS = 8
+SHOUP_OPS = 4       # the inverse's n^-1: a second Shoup product in its last stage
+MONT_OPS = 6        # 32x32->64 product, one low and one high multiply, csub
+ADD_OPS = 3
+# The nine K1 launches of one server query at L = 6, mul_limbs 5,
+# ship_limbs 4, 8 aux limbs, D = 12 (fhe/bfv.py hps_mul_relin_rescaled and
+# _hps_core, fhe/bgv.py _key_switch_coeffs): (label, inverse, leading
+# shape, basis).
+K1_QUERY_LAUNCHES = (
+    ("1 operands to coefficients", True, (2, 12, 2), "q6"),
+    ("2 ntt_m", False, (2, 12, 2), "q5"),
+    ("3 eab, aux base", False, (2, 12, 2), "aux"),
+    ("4 d_q", True, (12, 3), "q5"),
+    ("5 d_aux, aux base", True, (12, 3), "aux"),
+    ("6 d01", False, (12, 2), "q5"),
+    ("7 key-switch digits", False, (12, 5), "q5"),
+    ("8 ship, inverse", True, (12, 2), "q5"),
+    ("9 ship, forward", False, (12, 2), "q4"),
+)
 
 
 def fail(msg: str) -> None:
@@ -70,6 +116,32 @@ def time_ms(fn, iters: int) -> float:
     return start.elapsed_time(stop) / iters
 
 
+def graph_ms(fn, iters: int = 20) -> float:
+    """Mean device time of fn() replayed from a CUDA graph of iters calls:
+    the kernels' time without the host's pace between launches."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm up (and set attributes) outside the capture
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(5):
+        graph.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / (5 * iters)
+
+
 def wall_ms(fn, iters: int) -> float:
     """Mean host-clock time of fn() ending in a synchronize (warmed once)."""
     import torch
@@ -81,6 +153,90 @@ def wall_ms(fn, iters: int) -> float:
         fn()
     torch.cuda.synchronize()
     return (time.perf_counter() - t0) * 1e3 / iters
+
+
+def bound(ops: float, ops_per_s: float, nbytes: float) -> tuple[float, str]:
+    """(least ms, "operations" or "bytes"): the larger of the two times."""
+    t_ops, t_bytes = ops / ops_per_s * 1e3, nbytes / HBM_BYTES_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def k1_bound(rows: int, L: int, n: int, inverse: bool) -> tuple[float, str]:
+    """K1 on rows x n residues: n/2 log n butterflies per row (plus, for the
+    inverse, n/2 Shoup products for the n^-1 scale folded into its last
+    stage); each row read and written once, plus the twiddle pairs of the L
+    primes."""
+    logn = n.bit_length() - 1
+    ops = rows * (n // 2) * (logn * BUTTERFLY_OPS + (SHOUP_OPS if inverse else 0))
+    return bound(ops, INT32_OPS_S, rows * n * 8 + L * n * 8 + L * 12)
+
+
+def k2_bound(H: int, D: int, P: int, L: int, N: int) -> tuple[float, str]:
+    """K2: index (H,P,2,L,N) and the P table positions read once, out
+    (H,D,2,L,N) written once; P Montgomery products and adds per output."""
+    out = H * D * 2 * L * N
+    return bound(out * P * (MONT_OPS + ADD_OPS), INT32_OPS_S,
+                 4 * (H * P * 2 * L * N + H * D * P * L * N + out) + 8 * L)
+
+
+def k3_bound(rows: int, L: int, n: int, m1: int, digits: int) -> tuple[float, str]:
+    """K3: two digit-stacked matrix stages per row, digits^2 * n * (m1 + m2)
+    int8 multiply-adds (2 ops each); rows read and written once plus the
+    int8 digit matrices and twiddles of the L primes."""
+    m2 = n // m1
+    macs = rows * digits * digits * n * (m1 + m2)
+    table_bytes = L * digits * digits * (m1 * m1 + m2 * m2) + L * n * 8
+    return bound(2 * macs, INT8_OPS_S, rows * n * 8 + table_bytes)
+
+
+def ptxas_summary(report: str) -> str:
+    """Registers and spills per kernel family from `nvcc -Xptxas -v`."""
+    fam, regs, spills = None, {}, {}
+    for line in report.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1] if "'" in line else line
+            fam = next((f for f in ("ntt_fwd", "ntt_inv", "ntt_mxu", "pie_ip") if f in name),
+                       "other")
+        elif fam and "Used" in line and "registers" in line:
+            n = int(line.split("Used")[1].split("registers")[0])
+            regs[fam] = max(regs.get(fam, 0), n)
+        elif fam and "spill stores" in line:
+            n = int(line.split("bytes spill stores")[0].split()[-1])
+            spills[fam] = max(spills.get(fam, 0), n)
+    return "max registers " + ", ".join(f"{k} {v}" for k, v in sorted(regs.items())) + \
+        "; max spill-store bytes " + ", ".join(f"{k} {v}" for k, v in sorted(spills.items()))
+
+
+# SASS opcodes by the pipe that runs them (the ALU pipe takes the rest)
+FMA_PIPE = ("IMAD", "IMUL", "HFMA2")
+MEMORY = ("LDG", "STG", "LDS", "STS", "LDC", "ULDC")
+
+
+def k1_instruction_mix(lib_path: str, nvcc: str) -> str:
+    """Instructions per butterfly of K1's top-window kernels at n = 16384
+    (straight-line code: 32 residues and 5 stages, 80 butterflies, per
+    thread), by pipe, from `cuobjdump -sass` of the built library."""
+    tool = os.path.join(os.path.dirname(nvcc), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", lib_path], capture_output=True, text=True,
+                          timeout=300).stdout
+    parts = []
+    for fn in sass.split("Function : ")[1:]:
+        name = fn.split("\n", 1)[0]
+        if "kernelILi14ELi9ELi5E" not in name:
+            continue
+        ops = []  # opcodes, e.g. "IMAD" of "@!P0 IMAD.HI.U32 R5, R4, R3, RZ ;"
+        for ln in fn.splitlines():
+            toks = ln.split("*/", 1)[1].split() if ln.strip().startswith("/*") else []
+            toks = toks[1:] if toks and toks[0].startswith("@") else toks
+            if toks:
+                ops.append(toks[0].split(".")[0])
+        fma = sum(o in FMA_PIPE for o in ops)
+        mem = sum(o in MEMORY for o in ops)
+        alu = len(ops) - fma - mem - sum(o in ("NOP", "BRA", "EXIT") for o in ops)
+        direction = "inverse" if "ntt_inv" in name else "forward"
+        parts.append(f"{direction}: FMA pipe {fma / 80:.2f}, ALU and the other pipes "
+                     f"{alu / 80:.2f}, memory {mem / 80:.2f} per butterfly")
+    return "; ".join(parts) or "no n = 16384 top-window kernel found"
 
 
 def max_err(got, want, name: str) -> int:
@@ -102,6 +258,63 @@ def compare(name, kernel_fn, plain_fn, iters=20, plain_iters=3):
     if err != 0:
         fail(f"{name}: kernel disagrees with its plain version (max_abs_err {err})")
     return err, ms, plain_ms
+
+
+def trace_online(pie, idx_ct, minus_ct, timed: int = 20, traced: int = 10) -> dict:
+    """Steady-state online step of one query: host-clock ms over `timed`
+    queries (after 3 warm-ups), then a torch.profiler trace of `traced`
+    more, summed by kernel group from the exported chrome trace."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        pie.run(idx_ct, minus_ct)
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(timed):
+        t0 = time.perf_counter()
+        pie.run(idx_ct, minus_ct)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(traced):
+            pie.run(idx_ct, minus_ct)
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "online_trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel" and "dur" in e]
+    if not kernels:
+        fail("the profiler recorded no kernel on the device")
+    groups = {"K1": [0.0, 0], "K2": [0.0, 0], "plain": [0.0, 0]}
+    k1_kernels = {}  # K1 by kernel instance <log2 n, window's low bit, width>
+    for e in kernels:
+        name = e["name"]
+        g = ("K1" if "ntt_fwd" in name or "ntt_inv" in name
+             else "K2" if "pie_ip" in name else "plain")
+        groups[g][0] += e["dur"] / 1e3
+        groups[g][1] += 1
+        if g == "K1":
+            inst = name.split("::")[-1].split("(")[0]
+            k = k1_kernels.setdefault(inst, [0.0, 0])
+            k[0] += e["dur"] / 1e3 / traced
+            k[1] += 1 / traced
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in kernels)
+    busy, (lo, hi) = 0.0, spans[0]
+    for s0, s1 in spans[1:]:
+        if s0 > hi:
+            busy, lo, hi = busy + hi - lo, s0, s1
+        else:
+            hi = max(hi, s1)
+    busy += hi - lo
+    span = max(s1 for _, s1 in spans) - spans[0][0]
+    walls.sort()
+    return {"wall_ms_median": walls[len(walls) // 2], "wall_ms_min": walls[0],
+            "wall_ms_max": walls[-1], "busy_share": busy / span, "k1_kernels": k1_kernels,
+            **{f"{g}_ms_per_query": v[0] / traced for g, v in groups.items()},
+            **{f"{g}_launches_per_query": v[1] / traced for g, v in groups.items()}}
 
 
 def main() -> None:
@@ -136,10 +349,12 @@ def main() -> None:
 
     # ---- build --------------------------------------------------------
     t0 = time.perf_counter()
-    cuda_lib.build()
+    report = cuda_lib.build(verbose=True)
     cuda_lib.get_lib()
     print(f"[build] {len(cuda_lib.sources())} sources -> {cuda_lib.LIB_PATH} in "
-          f"{time.perf_counter() - t0:.2f} s", flush=True)
+          f"{time.perf_counter() - t0:.2f} s; {ptxas_summary(report)}", flush=True)
+    print("[sass] K1 top window, n = 16384: "
+          f"{k1_instruction_mix(cuda_lib.LIB_PATH, cuda_lib.find_nvcc())}", flush=True)
 
     # ---- kernels vs plain at the main path's shapes ---------------------
     T = (1 << 32) + (1 << 20) + (1 << 19) + 1
@@ -156,6 +371,12 @@ def main() -> None:
         ).to(dev)
 
     results = {}
+    # bring the card to its working clocks before the first timing (the
+    # first K1 timing of a fresh process read up to 1.5x slower otherwise)
+    warm_plan = NTTPlan(N, q)
+    warm = residues((2, 12, 2, L, N), q)
+    time_ms(lambda: ntt_cuda.ntt(warm, warm_plan), 500)
+    del warm
     # the HPS operand transforms: (2 operands, D = 12 depths, 2 components)
     for base, ps in (("q", q), ("aux", aux)):
         plan = NTTPlan(N, ps)
@@ -167,31 +388,74 @@ def main() -> None:
         results[f"intt_{base}"] = compare(
             f"K1 inverse NTT, {base} base (2,12,2,{len(ps)},{N})",
             lambda: ntt_cuda.intt(y, plan), lambda: intt(y, plan))
+    for key, inverse in (("ntt_q", False), ("intt_q", True)):
+        results[key] += k1_bound(2 * 12 * 2 * L, L, N, inverse)
+
+    # ---- K1 at the nine launches of one server query --------------------
+    bases = {"q6": q, "q5": q[:mul], "q4": q[:4], "aux": aux}
+    plans = {k: NTTPlan(N, ps) for k, ps in bases.items()}
+    k1_query = {"ms": 0.0, "device_ms": 0.0, "bound_ms": 0.0, "rows": 0}
+    for label, inverse, lead, base in K1_QUERY_LAUNCHES:
+        plan, ps = plans[base], bases[base]
+        shape = (*lead, len(ps), N)
+        x = residues(shape, ps)
+        kfn = (lambda: ntt_cuda.intt(x, plan)) if inverse else (lambda: ntt_cuda.ntt(x, plan))
+        pfn = (lambda: intt(x, plan)) if inverse else (lambda: ntt(x, plan))
+        want = pfn()
+        err = max_err(kfn(), want, f"K1 launch {label}")
+        forms = {}
+        for form, code in (("whole-row", ntt_cuda.WHOLE_ROW), ("split", ntt_cuda.SPLIT)):
+            ffn = lambda: ntt_cuda._launch(x, plan, inverse, form=code)  # noqa: E731
+            err = max(err, max_err(ffn(), want, f"K1 launch {label}, {form}"))
+            forms[form] = graph_ms(ffn)
+        if err != 0:
+            fail(f"K1 launch {label} {shape}: kernel disagrees with plain (max_abs_err {err})")
+        ms, dev_ms = time_ms(kfn, 50), graph_ms(kfn)
+        rows = x.numel() // N
+        b_ms, b_by = k1_bound(rows, len(ps), N, inverse)
+        k1_query["ms"] += ms
+        k1_query["device_ms"] += dev_ms
+        k1_query["bound_ms"] += b_ms
+        k1_query["rows"] += rows
+        print(f"[k1_query] {label}: {'inverse' if inverse else 'forward'} {shape} "
+              f"rows {rows}: max_abs_err {err} kernel {ms:.4f} ms through the wrapper, "
+              f"{dev_ms:.4f} ms from a CUDA graph (whole-row {forms['whole-row']:.4f}, "
+              f"split {forms['split']:.4f}) bound {b_ms:.4f} ms ({b_by}) share "
+              f"{b_ms / dev_ms:.3f}", flush=True)
+        del x, want
+    print(f"[k1_query] sum of the nine launches: {k1_query['rows']} rows, kernel "
+          f"{k1_query['ms']:.4f} ms through the wrapper, {k1_query['device_ms']:.4f} ms from "
+          f"a CUDA graph, bound {k1_query['bound_ms']:.4f} ms, share "
+          f"{k1_query['bound_ms'] / k1_query['device_ms']:.3f}", flush=True)
+
+    # ---- K2 ------------------------------------------------------------
     H, D, P = 2, 12, 12
     tb = NTTPlan(N, q).tensors(dev)
     idx = residues((H, P, 2, L, N), q)
     pt = residues((H, D, P, L, N), q)
     results["pie_ip"] = compare(
         f"K2 position sum (H,D,P,L,N)=({H},{D},{P},{L},{N})",
-        lambda: pie_kernels.indexed_inner_product(idx, pt, tb["p"], tb["pinv"]),
+        lambda: pie_kernels.indexed_inner_product(idx, pt, tb["p_u32"], tb["pinv_u32"]),
         lambda: pie_kernels.indexed_inner_product_plain(idx, pt, tb["p"], tb["pinv"]),
-        plain_iters=2)
+        plain_iters=2) + k2_bound(H, D, P, L, N)
     idx_s = idx[:, 3:6].contiguous()
     results["pie_ip_slice"] = compare(
         "K2 position sum over table positions [3, 6) of P = 12, in place",
-        lambda: pie_kernels.indexed_inner_product(idx_s, pt, tb["p"], tb["pinv"], p0=3),
+        lambda: pie_kernels.indexed_inner_product(idx_s, pt, tb["p_u32"], tb["pinv_u32"], p0=3),
         lambda: pie_kernels.indexed_inner_product_plain(idx_s, pt, tb["p"], tb["pinv"], p0=3),
-        plain_iters=2)
-    # K2's launch alone, constants prepared once: how much of the wrapper's
-    # event time above is the host preparing each call
+        plain_iters=2) + k2_bound(H, D, 3, L, N)
+    # K2's launch alone: how much of the wrapper's event time above is the
+    # host preparing each call
     lib, stream = cuda_lib.get_lib(), torch.cuda.current_stream().cuda_stream
-    consts = [pie_kernels._u32_bits(tb[k]) for k in ("p", "pinv")]
     out = torch.empty((H, D, 2, L, N), dtype=torch.int32, device=dev)
-    for label, ii, p0 in (("whole table", idx, 0), ("slice [3, 6)", idx_s, 3)):
+    for key, ii, p0 in (("pie_ip", idx, 0), ("pie_ip_slice", idx_s, 3)):
         raw_ms = time_ms(lambda: lib.nhpsi_pie_ip(
-            ii.data_ptr(), pt.data_ptr(), out.data_ptr(), consts[0].data_ptr(),
-            consts[1].data_ptr(), H, D, ii.shape[1], L, N, p0, P, stream), 20)
-        print(f"[kernel] K2 launch alone, {label}: {raw_ms:.4f} ms", flush=True)
+            ii.data_ptr(), pt.data_ptr(), out.data_ptr(), tb["p_u32"].data_ptr(),
+            tb["pinv_u32"].data_ptr(), H, D, ii.shape[1], L, N, p0, P, stream), 20)
+        err, ms, _, b_ms, b_by = results[key]
+        print(f"[kernel] K2 {key}: wrapper {ms:.4f} ms, launch alone {raw_ms:.4f} ms, "
+              f"bound {b_ms:.4f} ms ({b_by}), share of the bound {b_ms / raw_ms:.3f} "
+              f"(launch) {b_ms / ms:.3f} (wrapper)", flush=True)
     del idx, pt, idx_s, out
 
     # ---- K3: its own phase (no caller on the protocol path) ------------
@@ -222,7 +486,9 @@ def main() -> None:
             k1_ms = time_ms(k1fn, 20)
             print(f"[kernel] K3 {name} NTT, {shape}: max_abs_err vs K1 {e_k1}; "
                   f"K3 {ms:.4f} ms, K1 {k1_ms:.4f} ms, plain {plain_ms:.4f} ms", flush=True)
-            results[f"ntt_mxu_{key}_{base}"] = (max(err, e_k1), ms, plain_ms, k1_ms)
+            results[f"ntt_mxu_{key}_{base}"] = (max(err, e_k1), ms, plain_ms, k1_ms,
+                                                *k3_bound(x.numel() // N, plan.L, N, mplan.m1,
+                                                          ntt_mxu.DIGITS))
     del k3
     torch.cuda.empty_cache()
 
@@ -266,8 +532,24 @@ def main() -> None:
         runs[label] = (client, server)
     print(f"[main] kernel launches over the three runs {launches}", flush=True)
 
-    # ---- device decrypt vs host decrypt on the one-query result ---------
+    # ---- steady-state online step, traced --------------------------------
     client, server = runs["queries=1"]
+    tr = trace_online(server.pie, client.idx_ct, client.minus_ct)
+    device_ms = sum(tr[f"{g}_ms_per_query"] for g in ("K1", "K2", "plain"))
+    print(f"[trace] online step, one query, steady state: wall median "
+          f"{tr['wall_ms_median']:.3f} ms (min {tr['wall_ms_min']:.3f}, max "
+          f"{tr['wall_ms_max']:.3f}) over 20 queries; traced 10: device "
+          f"{device_ms:.3f} ms/query, K1 {tr['K1_ms_per_query']:.4f} ms/query "
+          f"({tr['K1_launches_per_query']:.0f} launches; bound "
+          f"{k1_query['bound_ms']:.4f} ms), K2 {tr['K2_ms_per_query']:.4f} ms/query "
+          f"({tr['K2_launches_per_query']:.0f}), plain PyTorch {tr['plain_ms_per_query']:.3f} "
+          f"ms/query ({tr['plain_launches_per_query']:.0f}); busy share "
+          f"{tr['busy_share']:.3f}", flush=True)
+    print("[trace] K1 by kernel, per query: " + "; ".join(
+        f"{k} {ms:.4f} ms ({n:.0f})" for k, (ms, n) in sorted(tr["k1_kernels"].items())),
+        flush=True)
+
+    # ---- device decrypt vs host decrypt on the one-query result ---------
     result = server.pie.run(client.idx_ct, client.minus_ct)
     L_ship = result.data.shape[-2]
     dctx = client.ctx.context_for_limbs(L_ship)
@@ -311,14 +593,20 @@ def main() -> None:
               f"table; online {ms_host:.3f} ms vs device table {ms_dev:.3f} ms "
               f"(table {pie_host.table_pt.numel() * 4 / 2**20:.1f} MiB pinned; build "
               f"{t2 - t1:.2f} s host vs {t1 - t0:.2f} s device)", flush=True)
-    if "jax" in sys.modules:
-        fail("jax was imported")
+    loaded = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
+                    or m == "nested_hashing_psi_tpu" or m.startswith("nested_hashing_psi_tpu."))
+    if loaded:
+        fail(f"the port loaded jax or the JAX package: {loaded[:10]}")
 
     def entry(name, source, replaces, key, launched, **extra):
         err, ms, plain_ms = results[key][:3]
+        bound_ms, bound_by = results[key][-2:]
+        # no PyTorch call computes an exact NTT mod a 31-bit prime or K2's
+        # Montgomery position sum: library_ms is null
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": launched, "max_abs_err": err, "ms": ms,
-                "plain_ms": plain_ms, **extra}
+                "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": None, **extra}
 
     csrc = "nested_hashing_psi_tpu_torch/csrc"
     k3_note = "own phase: K3 has no caller on the protocol path"

@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import sys
 
-from nested_hashing_psi_tpu.config import build_arg_parser, params_from_args
+from nested_hashing_psi_tpu_torch.config import build_arg_parser, params_from_args
 from nested_hashing_psi_tpu_torch.protocol.runner import run_client_tcp, run_server_tcp
 
 

@@ -8,8 +8,9 @@
 
 namespace nhpsi {
 
+// x mod p for x < 2p, branch-free: when x < p, x - p wraps above x.
 __device__ __forceinline__ uint32_t csub(uint32_t x, uint32_t p) {
-  return x >= p ? x - p : x;
+  return min(x, x - p);
 }
 
 __device__ __forceinline__ uint32_t add_mod(uint32_t a, uint32_t b, uint32_t p) {

@@ -139,7 +139,7 @@ class BFVContext(BGVContext):
         native __int128 kernel for t >= 2^33, exact object arithmetic for
         t >= 2^40 otherwise."""
         if self.t >= 1 << 33:
-            from nested_hashing_psi_tpu.utils import native
+            from nested_hashing_psi_tpu_torch.utils import native
 
             res = native.phase_to_mt(phase, self.q_primes, self.t, "bfv")
             if res is not None:

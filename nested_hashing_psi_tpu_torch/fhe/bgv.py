@@ -108,6 +108,9 @@ class BGVContext:
         # device constants, (L, 1) int64 to broadcast against (..., L, N)
         tb = self.plan.tensors(self.device)
         self.p, self.pinv, self.r2 = tb["p"], tb["pinv"], tb["r2"]
+        # the same primes and Montgomery constants as (L,) int32 bit views,
+        # the form the position-sum kernel reads
+        self.p_u32, self.pinv_u32 = tb["p_u32"], tb["pinv_u32"]
         qs = self.q_primes
         self.t_mont = self._col([(self.t << 32) % p for p in qs])
         # encryption-noise scaling: t*e for BGV; BFV overrides with 1*e

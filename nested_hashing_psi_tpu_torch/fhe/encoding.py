@@ -14,8 +14,8 @@ forward NTT. Slot order is canonical (5-power ordering).
 Two execution paths:
  - t < 2**31 (e.g. 65537 for 16-bit items): vectorized numpy uint64, exact.
  - larger t (33/41/49-bit moduli): the native C++ __int128 host kernel
-   (native/nhpsi_native.cpp, via nested_hashing_psi_tpu.utils.native, which
-   is jax-free) when available, with an exact numpy object-array fallback.
+   (native/nhpsi_native.cpp, via the port's utils/native.py) when
+   available, with an exact numpy object-array fallback.
 """
 
 from __future__ import annotations
@@ -218,7 +218,7 @@ class PackedEncoder:
     def _big_ntt(self, x: np.ndarray, inverse: bool) -> np.ndarray:
         """NTT mod big t (< 2^63): native C++ (__int128) when available, else
         exact object-array arithmetic. Returns uint64 when possible."""
-        from nested_hashing_psi_tpu.utils import native
+        from nested_hashing_psi_tpu_torch.utils import native
 
         lead = x.shape[:-1]
         x = x.reshape(-1, x.shape[-1])

@@ -33,10 +33,10 @@ _lib = None
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    # (x, y, psi, primes, rows, L, logn, stream)
-    "nhpsi_ntt_fwd": [_P, _P, _P, _P, _I, _I, _I, _P],
-    # (x, y, ipsi, ninv, primes, rows, L, logn, stream)
-    "nhpsi_ntt_inv": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # (x, y, twiddle_pairs, iscale, primes, rows, L, logn, inverse, grids*, stream)
+    "nhpsi_ntt": [_P] * 5 + [_I] * 4 + [ctypes.POINTER(_I), _P],
+    # as nhpsi_ntt with a forced form before grids*
+    "nhpsi_ntt_form": [_P] * 5 + [_I] * 5 + [ctypes.POINTER(_I), _P],
     # (idx, pt, out, primes, pinvs, H, D, P, L, N, p0, P_full, stream)
     "nhpsi_pie_ip": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # (x, y, tmp, ga, gb, tw, rc, primes, pinvs, rows, L, m1, m2, inverse, stream)

@@ -47,6 +47,9 @@ class NTTPlan:
     psi_rev: np.ndarray = field(init=False)       # (L, 2, n)
     psi_inv_rev: np.ndarray = field(init=False)   # (L, 2, n)
     n_inv: np.ndarray = field(init=False)         # (L, 2, 1) n^-1 Shoup pair
+    # the CUDA kernel's inverse scale, folded into its last stage:
+    # [n^-1, quotient, psi_inv_rev[1] * n^-1, quotient]
+    inv_scale: np.ndarray = field(init=False)     # (L, 4)
     p_arr: np.ndarray = field(init=False)         # (L, 1)
     pinv_arr: np.ndarray = field(init=False)      # (L, 1)
     r2_arr: np.ndarray = field(init=False)        # (L, 1)
@@ -59,6 +62,7 @@ class NTTPlan:
         psi_rev = np.zeros((L, 2, n), dtype=np.uint32)
         psi_inv_rev = np.zeros((L, 2, n), dtype=np.uint32)
         n_inv = np.zeros((L, 2, 1), dtype=np.uint32)
+        inv_scale = np.zeros((L, 4), dtype=np.uint32)
         p_arr = np.zeros((L, 1), dtype=np.uint32)
         pinv_arr = np.zeros((L, 1), dtype=np.uint32)
         r2_arr = np.zeros((L, 1), dtype=np.uint32)
@@ -79,6 +83,8 @@ class NTTPlan:
             psi_inv_rev[l, 1] = (iw << np.uint64(32)) // np.uint64(p)
             ninv = pow(n, -1, p)
             n_inv[l, 0, 0], n_inv[l, 1, 0] = ninv, shoup_host(ninv, p)
+            w1ninv = int(iw[1]) * ninv % p
+            inv_scale[l] = ninv, shoup_host(ninv, p), w1ninv, shoup_host(w1ninv, p)
             pinv, r2 = mont_constants(p)
             p_arr[l, 0] = p
             pinv_arr[l, 0] = pinv
@@ -86,6 +92,7 @@ class NTTPlan:
         self.psi_rev = psi_rev
         self.psi_inv_rev = psi_inv_rev
         self.n_inv = n_inv
+        self.inv_scale = inv_scale
         self.p_arr = p_arr
         self.pinv_arr = pinv_arr
         self.r2_arr = r2_arr
@@ -101,7 +108,10 @@ class NTTPlan:
 
     def tensors(self, device) -> dict:
         """The tables on `device`: int64 copies for the plain version and
-        int32 bit-views of the uint32 tables for the CUDA kernel."""
+        int32 bit-views of the uint32 tables for the CUDA kernels. The NTT
+        kernel reads each twiddle as one 8-byte [value, quotient] pair:
+        ``psi_pairs_u32``/``ipsi_pairs_u32`` are (L, n, 2), the (L, 2, n)
+        tables with their last two axes swapped."""
         device = torch.device(device)
         if device not in self._dev:
             def i64(a):
@@ -119,10 +129,11 @@ class NTTPlan:
                 "p": i64(self.p_arr),
                 "pinv": i64(self.pinv_arr),
                 "r2": i64(self.r2_arr),
-                "psi_u32": u32(self.psi_rev),
-                "ipsi_u32": u32(self.psi_inv_rev),
-                "ninv_u32": u32(self.n_inv[:, :, 0]),
+                "psi_pairs_u32": u32(self.psi_rev.transpose(0, 2, 1)),
+                "ipsi_pairs_u32": u32(self.psi_inv_rev.transpose(0, 2, 1)),
+                "iscale_u32": u32(self.inv_scale),
                 "p_u32": u32(self.p_arr[:, 0]),
+                "pinv_u32": u32(self.pinv_arr[:, 0]),
             }
         return self._dev[device]
 

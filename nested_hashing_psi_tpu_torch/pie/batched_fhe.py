@@ -25,8 +25,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from nested_hashing_psi_tpu.hashing.cuckoo import CuckooHashTable
-from nested_hashing_psi_tpu.hashing.hierarchical import HierarchicalCuckooHashTable
+from nested_hashing_psi_tpu_torch.hashing.cuckoo import CuckooHashTable
+from nested_hashing_psi_tpu_torch.hashing.hierarchical import HierarchicalCuckooHashTable
 from nested_hashing_psi_tpu_torch.fhe.bfv import BFVContext
 from nested_hashing_psi_tpu_torch.fhe.bgv import Ciphertext, RelinKey, SecretKey
 from nested_hashing_psi_tpu_torch.fhe.params import bfv_mul_limbs, bfv_ship_limbs
@@ -63,7 +63,7 @@ def position_sum(ctx: BFVContext, idx_data, table_pt, p0: int | None = None) -> 
     """Per-(hash, depth) position-summed ct x pt products: (H, D, 2, L, N);
     with p0, over table positions [p0, p0 + idx_data.shape[1]), read in
     place."""
-    return indexed_inner_product(idx_data, table_pt, ctx.p, ctx.pinv, p0)
+    return indexed_inner_product(idx_data, table_pt, ctx.p_u32, ctx.pinv_u32, p0)
 
 
 def combine_ip(

@@ -20,14 +20,14 @@ import time
 import numpy as np
 import torch
 
-from nested_hashing_psi_tpu.config import HashTableParams, PSIParams
-from nested_hashing_psi_tpu.hashing import (
+from nested_hashing_psi_tpu_torch.config import HashTableParams, PSIParams
+from nested_hashing_psi_tpu_torch.hashing import (
     CuckooHashTable,
     HierarchicalCuckooHashTable,
     TabulationHashing,
 )
-from nested_hashing_psi_tpu.protocol.base import PSIClientBase, PSIServerBase
-from nested_hashing_psi_tpu.protocol.channel import Channel
+from nested_hashing_psi_tpu_torch.protocol.base import PSIClientBase, PSIServerBase
+from nested_hashing_psi_tpu_torch.protocol.channel import Channel
 from nested_hashing_psi_tpu_torch.convert import (
     ciphertext_from_numpy,
     from_numpy,

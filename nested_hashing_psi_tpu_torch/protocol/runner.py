@@ -10,9 +10,9 @@ from __future__ import annotations
 
 import threading
 
-from nested_hashing_psi_tpu.config import HashTableParams, PSIParams
-from nested_hashing_psi_tpu.data.input import RandomDataInput
-from nested_hashing_psi_tpu.protocol.channel import LoopbackChannel, TCPChannel
+from nested_hashing_psi_tpu_torch.config import HashTableParams, PSIParams
+from nested_hashing_psi_tpu_torch.data.input import RandomDataInput
+from nested_hashing_psi_tpu_torch.protocol.channel import LoopbackChannel, TCPChannel
 from nested_hashing_psi_tpu_torch.protocol.batched_fhe import (
     BatchedFHEPSIClient,
     BatchedFHEPSIServer,

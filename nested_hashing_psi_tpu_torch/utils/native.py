@@ -1,0 +1,132 @@
+"""ctypes loader/builder for the native host kernels (native/nhpsi_native.cpp).
+
+The port's own copy of the two entry points it takes from
+``nested_hashing_psi_tpu.utils.native`` (``ntt_mod_t``, ``phase_to_mt``),
+with the same behaviour: the port imports nothing of the JAX package. The
+source is the repository's ``native/nhpsi_native.cpp``; it is compiled with
+g++ on first use into ``build/nhpsi_torch/`` (ignored by git), apart from
+the JAX package's build, and every caller has a pure-Python fallback, so a
+missing toolchain degrades performance, not capability.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import subprocess
+import threading
+
+import numpy as np
+
+_REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+_SRC = os.path.join(_REPO_ROOT, "native", "nhpsi_native.cpp")
+_SO = os.path.join(_REPO_ROOT, "build", "nhpsi_torch", "libnhpsi_native.so")
+
+_lock = threading.Lock()
+_lib = None
+_tried = False
+
+_U64P = ctypes.POINTER(ctypes.c_uint64)
+
+
+def get_lib():
+    """Returns the loaded library or None if unavailable."""
+    global _lib, _tried
+    with _lock:
+        if _lib is not None or _tried:
+            return _lib
+        _tried = True
+        try:
+            if not os.path.exists(_SO) or os.path.getmtime(_SO) < os.path.getmtime(_SRC):
+                os.makedirs(os.path.dirname(_SO), exist_ok=True)
+                tmp = f"{_SO}.{os.getpid()}.tmp"
+                subprocess.run(
+                    ["g++", "-O3", "-march=native", "-shared", "-fPIC", _SRC, "-o", tmp],
+                    check=True,
+                    capture_output=True,
+                )
+                os.replace(tmp, _SO)  # atomic: concurrent builders never see half a file
+            lib = ctypes.CDLL(_SO)
+            lib.ntt_mod_t.restype = ctypes.c_int
+            lib.ntt_mod_t.argtypes = [
+                _U64P, ctypes.c_int64, ctypes.c_int64, ctypes.c_uint64,
+                ctypes.c_uint64, ctypes.c_int,
+            ]
+            lib.phase_to_mt.restype = ctypes.c_double
+            lib.phase_to_mt.argtypes = [
+                _U64P, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+                _U64P, _U64P, _U64P, _U64P, ctypes.c_uint64, ctypes.c_uint64,
+                ctypes.c_int, _U64P,
+            ]
+            _lib = lib
+        except (OSError, subprocess.CalledProcessError):
+            _lib = None
+        return _lib
+
+
+def _u64ptr(a: np.ndarray):
+    return a.ctypes.data_as(_U64P)
+
+
+def ntt_mod_t(data: np.ndarray, t: int, psi: int, inverse: bool) -> np.ndarray | None:
+    """Batched negacyclic NTT mod t (<= 63 bits). data: (batch, n) uint64.
+    Returns transformed copy, or None if the native lib is unavailable."""
+    lib = get_lib()
+    if lib is None or t >= 1 << 63:
+        return None
+    out = np.ascontiguousarray(data, dtype=np.uint64).copy()
+    batch, n = out.shape
+    rc = lib.ntt_mod_t(_u64ptr(out), batch, n, t, psi, 1 if inverse else 0)
+    if rc != 0:
+        return None
+    return out
+
+
+def phase_to_mt(
+    phase: np.ndarray, q_primes: tuple[int, ...], t: int, scheme: str
+) -> tuple[np.ndarray, float] | None:
+    """Exact RNS phase -> message mod t via __int128 CRT (big-t decrypt,
+    reference 40/48-bit moduli). phase: (..., L, n) uint64 residues.
+    Returns ((..., n) uint64 messages, noise-fraction in [0, 0.5]) or None.
+    """
+    lib = get_lib()
+    if lib is None or t >= 1 << 63:
+        return None
+    L = len(q_primes)
+    q = 1
+    for p in q_primes:
+        q *= p
+    ph = np.ascontiguousarray(phase, dtype=np.uint64)
+    lead = ph.shape[:-2]
+    n = ph.shape[-1]
+    rows = int(np.prod(lead)) if lead else 1
+    qp = np.array(q_primes, dtype=np.uint64)
+    inv_qhat = np.array(
+        [pow(q // p, -1, p) for p in q_primes], dtype=np.uint64
+    )
+    if scheme == "bfv":
+        int_coef = np.array([t // p for p in q_primes], dtype=np.uint64)
+        frac_fp = np.array(
+            [((t % p) << 64) // p for p in q_primes], dtype=np.uint64
+        )
+        sub_coef = 0
+    else:
+        int_coef = np.array([(q // p) % t for p in q_primes], dtype=np.uint64)
+        frac_fp = np.array([(1 << 64) // p for p in q_primes], dtype=np.uint64)
+        sub_coef = q % t
+    out = np.zeros((rows, n), dtype=np.uint64)
+    dist = lib.phase_to_mt(
+        _u64ptr(ph.reshape(rows, L, n)),
+        rows,
+        L,
+        n,
+        _u64ptr(qp),
+        _u64ptr(inv_qhat),
+        _u64ptr(int_coef),
+        _u64ptr(frac_fp),
+        sub_coef,
+        t,
+        1 if scheme == "bfv" else 0,
+        _u64ptr(out),
+    )
+    return out.reshape(*lead, n), float(dist)

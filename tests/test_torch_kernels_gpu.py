@@ -65,6 +65,80 @@ def test_ntt_kernel_matches_plain(cuda, n, base):
     assert torch.equal(back.cpu(), x)
 
 
+# The nine K1 launches of one server query at ring 16384 (L = 6, mul_limbs
+# 5, ship_limbs 4, 8 aux limbs, D = 12): (inverse, leading shape, basis).
+MAIN_PATH_K1 = [
+    (True, (2, 12, 2), "q6"), (False, (2, 12, 2), "q5"), (False, (2, 12, 2), "aux"),
+    (True, (12, 3), "q5"), (True, (12, 3), "aux"), (False, (12, 2), "q5"),
+    (False, (12, 5), "q5"), (True, (12, 2), "q5"), (False, (12, 2), "q4"),
+]
+# the form chosen from n, and each form forced
+MODES = {"auto": None, "whole_row": ntt_cuda.WHOLE_ROW, "split": ntt_cuda.SPLIT}
+
+
+def _basis(name, n):
+    q = _bases(n)
+    return {"q6": q["q"], "q5": q["q"][:5], "q4": q["q"][:4], "aux": q["aux"]}[name]
+
+
+def _check_kernel(x, plan, mode, cuda):
+    """Forward and inverse through the kernel in the given form: equal to
+    the plain version, and the inverse undoes the forward."""
+    xc = x.to(cuda)
+    fwd = ntt_cuda._launch(xc, plan, inverse=False, form=mode)
+    inv = ntt_cuda._launch(xc, plan, inverse=True, form=mode)
+    back = ntt_cuda._launch(fwd, plan, inverse=True, form=mode)
+    torch.cuda.synchronize()
+    assert torch.equal(fwd.cpu(), ntt(x, plan))
+    assert torch.equal(inv.cpu(), intt(x, plan))
+    assert torch.equal(back.cpu(), x)
+
+
+@pytest.mark.parametrize("mode", sorted(MODES))
+@pytest.mark.parametrize("launch_no", range(1, 10))
+def test_ntt_kernel_main_path_shapes(cuda, launch_no, mode):
+    _, lead, basis = MAIN_PATH_K1[launch_no - 1]
+    ps = _basis(basis, 16384)
+    plan = NTTPlan(16384, ps)
+    _check_kernel(_residues((*lead, len(ps), 16384), ps, seed=launch_no), plan, MODES[mode], cuda)
+
+
+@pytest.mark.parametrize("logn", range(4, 16))
+def test_ntt_kernel_every_ring_size(cuda, logn):
+    n = 1 << logn
+    ps = ntt_primes(3, 31, 2 * n)
+    plan = NTTPlan(n, ps)
+    x = _residues((5, 3, n), ps, seed=logn)
+    for mode in ("whole_row", "split") if n >= 1024 else ("whole_row",):
+        _check_kernel(x, plan, MODES[mode], cuda)
+    if n < 1024:
+        with pytest.raises(RuntimeError):
+            ntt_cuda._launch(x.to(cuda), plan, inverse=False, form=ntt_cuda.SPLIT)
+
+
+@pytest.mark.parametrize("mode", sorted(MODES))
+@pytest.mark.parametrize("rows,L", [(1, 1), (7, 1), (133, 7), (397, 1)])
+def test_ntt_kernel_ragged_row_counts(cuda, rows, L, mode):
+    """Row counts that divide neither the card's SMs nor the split form's
+    eight chunks per block."""
+    ps = ntt_primes(L, 31, 2 * 16384, avoid=(T32,))
+    plan = NTTPlan(16384, ps)
+    _check_kernel(_residues((rows // L, L, 16384), ps, seed=rows), plan, MODES[mode], cuda)
+
+
+def test_ntt_kernel_unaligned_input(cuda):
+    """A view that starts 4 bytes into its storage goes through a copy."""
+    ps = ntt_primes(2, 31, 2 * 1024)
+    plan = NTTPlan(1024, ps)
+    x = _residues((3, 2, 1024), ps, seed=3)
+    flat = torch.cat([torch.zeros(1, dtype=torch.int32), x.reshape(-1)]).to(cuda)
+    view = flat[1:].view(3, 2, 1024)
+    assert view.data_ptr() % 16 != 0
+    got = ntt_cuda.ntt(view, plan)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), ntt(x, plan))
+
+
 def test_ntt_kernel_small_ring_and_launch_count(cuda):
     ps = ntt_primes(2, 31, 2 * 16)
     plan = NTTPlan(16, ps)
@@ -75,6 +149,19 @@ def test_ntt_kernel_small_ring_and_launch_count(cuda):
     assert torch.equal(got.cpu(), ntt(x, plan))
 
 
+def test_ntt_kernel_split_form_counts_two_launches(cuda):
+    """From n = 1024 up the kernel runs in the split form: two kernel
+    launches, each counted."""
+    rows = 3
+    ps = ntt_primes(1, 31, 2 * 1024)
+    plan = NTTPlan(1024, ps)
+    x = _residues((rows, 1, 1024), ps, seed=5)
+    before = dict(ntt_cuda.launches)
+    got = ntt_cuda.intt(x.to(cuda), plan)
+    assert ntt_cuda.launches == {"ntt": before["ntt"], "intt": before["intt"] + 2}
+    assert torch.equal(got.cpu(), intt(x, plan))
+
+
 def test_pie_kernel_matches_plain_main_geometry(cuda):
     H, D, P, L, N = 2, 12, 12, 6, 16384
     ps = ntt_primes(L, 31, 2 * N, avoid=(T32,))
@@ -83,7 +170,7 @@ def test_pie_kernel_matches_plain_main_geometry(cuda):
     idx = _residues((H, P, 2, L, N), ps, seed=2).to(cuda)
     pt = _residues((H, D, P, L, N), ps, seed=3).to(cuda)
     before = pie_kernels.launches
-    got = pie_kernels.indexed_inner_product(idx, pt, tb["p"], tb["pinv"])
+    got = pie_kernels.indexed_inner_product(idx, pt, tb["p_u32"], tb["pinv_u32"])
     torch.cuda.synchronize()
     assert pie_kernels.launches == before + 1
     want = pie_kernels.indexed_inner_product_plain(idx, pt, tb["p"], tb["pinv"])
@@ -123,7 +210,7 @@ def test_pie_kernel_slice_matches_plain(cuda):
     tb = NTTPlan(N, ps).tensors(cuda)
     idx = _residues((H, 3, 2, L, N), ps, seed=4).to(cuda)
     pt = _residues((H, D, P, L, N), ps, seed=5).to(cuda)
-    got = pie_kernels.indexed_inner_product(idx, pt, tb["p"], tb["pinv"], p0=3)
+    got = pie_kernels.indexed_inner_product(idx, pt, tb["p_u32"], tb["pinv_u32"], p0=3)
     torch.cuda.synchronize()
     want = pie_kernels.indexed_inner_product_plain(idx, pt[:, :, 3:6].contiguous(), tb["p"], tb["pinv"])
     assert torch.equal(got, want)
@@ -152,7 +239,7 @@ def test_device_decrypt_matches_host_decrypt(cuda):
 
 
 def _small_protocol(**over):
-    from nested_hashing_psi_tpu.config import HashTableParams, PSIParams
+    from nested_hashing_psi_tpu_torch.config import HashTableParams, PSIParams
 
     kw = dict(server_set_size=300, client_set_size=12, intersection_set_size=5,
               bit_size=32, fhe=True, batched=True, ring_dim=128, num_limbs=10)
@@ -210,7 +297,7 @@ def test_kernel_wrappers_reject_bad_input(cuda):
 def test_protocol_on_cuda_small_ring(cuda):
     """The whole BatchedFHE slice on the card at a small ring: it verifies,
     and it went through both kernels."""
-    from nested_hashing_psi_tpu.config import HashTableParams, PSIParams
+    from nested_hashing_psi_tpu_torch.config import HashTableParams, PSIParams
     from nested_hashing_psi_tpu_torch.protocol.runner import run_in_process
 
     psi = PSIParams(server_set_size=300, client_set_size=12, intersection_set_size=5,

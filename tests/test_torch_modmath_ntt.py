@@ -135,3 +135,28 @@ def test_ntt_wrapper_takes_plain_version_on_cpu():
         ntt_cuda.ntt(x.long(), tp)
     with pytest.raises(ValueError):
         ntt_cuda.ntt(x[..., :64], tp)
+
+
+@pytest.mark.parametrize("n", [16, 512, 16384])
+def test_kernel_tables_pinned_to_jax(n):
+    """The CUDA kernel's tables, built in Python from the plan: twiddles as
+    interleaved [value, quotient] pairs (L, n, 2) of the JAX NTTPlan's
+    (L, 2, n) tables, and the inverse scale folded into the last stage,
+    [n^-1, quotient, psi_inv_rev[1] n^-1, quotient], which scales as the
+    JAX plan's last twiddle followed by its n^-1 does."""
+    jp, tp = _plans(n)
+    tb = tp.tensors("cpu")
+
+    def u32(t):
+        return t.numpy().view(np.uint32)
+
+    np.testing.assert_array_equal(u32(tb["psi_pairs_u32"]), jp.psi_rev.transpose(0, 2, 1))
+    np.testing.assert_array_equal(u32(tb["ipsi_pairs_u32"]), jp.psi_inv_rev.transpose(0, 2, 1))
+    sc = u32(tb["iscale_u32"]).astype(object)
+    rng = np.random.default_rng(n)
+    for l, p in enumerate(tp.primes):
+        ninv, w1 = int(jp.n_inv[l, 0, 0]), int(jp.psi_inv_rev[l, 0, 1])
+        assert (sc[l, 0], sc[l, 1]) == (ninv, int(jp.n_inv[l, 1, 0]))
+        assert sc[l, 2] == w1 * ninv % p and sc[l, 3] == (sc[l, 2] << 32) // p
+        for d in rng.integers(0, p, size=8).tolist():
+            assert d * sc[l, 2] % p == d * w1 % p * ninv % p

@@ -19,6 +19,11 @@ from nested_hashing_psi_tpu_torch.ops.primes import ntt_primes
 torch.set_num_threads(1)
 
 
+def _u32(c):
+    """(L, 1) uint32 numpy constants -> the (L,) int32 bit views the wrapper takes."""
+    return torch.from_numpy(np.ascontiguousarray(c[:, 0]).view(np.int32))
+
+
 def _case(H, D, P, L, N, seed):
     ps = ntt_primes(L, 31, 2 * N)
     p = np.array(ps, np.uint32).reshape(L, 1)
@@ -54,7 +59,7 @@ def test_slice_equals_sliced_tensors(p0, w):
     idx, pt, p, pinv = _case(2, 3, 6, 2, 128, seed=p0 + 10 * w)
     tp, tpi = torch.from_numpy(p.astype(np.int64)), torch.from_numpy(pinv.astype(np.int64))
     ti = from_numpy(idx[:, p0 : p0 + w], "cpu")
-    got = pie_kernels.indexed_inner_product(ti, from_numpy(pt, "cpu"), tp, tpi, p0=p0)
+    got = pie_kernels.indexed_inner_product(ti, from_numpy(pt, "cpu"), _u32(p), _u32(pinv), p0=p0)
     want = pie_kernels.indexed_inner_product_plain(
         ti, from_numpy(np.ascontiguousarray(pt[:, :, p0 : p0 + w]), "cpu"), tp, tpi
     )
@@ -66,10 +71,9 @@ def test_slice_equals_sliced_tensors(p0, w):
 
 def test_slice_out_of_range_raises():
     idx, pt, p, pinv = _case(2, 3, 4, 2, 64, seed=3)
-    tp, tpi = torch.from_numpy(p.astype(np.int64)), torch.from_numpy(pinv.astype(np.int64))
     with pytest.raises(ValueError):
         pie_kernels.indexed_inner_product(
-            from_numpy(idx[:, :3], "cpu"), from_numpy(pt, "cpu"), tp, tpi, p0=2
+            from_numpy(idx[:, :3], "cpu"), from_numpy(pt, "cpu"), _u32(p), _u32(pinv), p0=2
         )
 
 
@@ -78,7 +82,7 @@ def test_wrapper_takes_plain_version_on_cpu():
     ti, tt = from_numpy(idx, "cpu"), from_numpy(pt, "cpu")
     tp, tpi = torch.from_numpy(p.astype(np.int64)), torch.from_numpy(pinv.astype(np.int64))
     before = pie_kernels.launches
-    got = pie_kernels.indexed_inner_product(ti, tt, tp, tpi)
+    got = pie_kernels.indexed_inner_product(ti, tt, _u32(p), _u32(pinv))
     assert pie_kernels.launches == before
     assert torch.equal(got, pie_kernels.indexed_inner_product_plain(ti, tt, tp, tpi))
 
@@ -88,9 +92,13 @@ def test_wrapper_rejects_mismatched_shapes():
     tp, tpi = torch.from_numpy(p.astype(np.int64)), torch.from_numpy(pinv.astype(np.int64))
     with pytest.raises(ValueError):
         pie_kernels.indexed_inner_product(
-            from_numpy(idx, "cpu")[:, :2], from_numpy(pt, "cpu"), tp, tpi
+            from_numpy(idx, "cpu")[:, :2], from_numpy(pt, "cpu"), _u32(p), _u32(pinv)
         )
     with pytest.raises(TypeError):
         pie_kernels.indexed_inner_product(
-            from_numpy(idx, "cpu").long(), from_numpy(pt, "cpu").long(), tp, tpi
+            from_numpy(idx, "cpu").long(), from_numpy(pt, "cpu").long(), _u32(p), _u32(pinv)
+        )
+    with pytest.raises(TypeError):
+        pie_kernels.indexed_inner_product(
+            from_numpy(idx, "cpu"), from_numpy(pt, "cpu"), tp, tpi
         )

@@ -164,7 +164,7 @@ def test_port_slice_runs_without_jax():
     never loads jax."""
     code = (
         "import sys\n"
-        "from nested_hashing_psi_tpu.config import HashTableParams, PSIParams\n"
+        "from nested_hashing_psi_tpu_torch.config import HashTableParams, PSIParams\n"
         "from nested_hashing_psi_tpu_torch.protocol.runner import run_in_process\n"
         "import nested_hashing_psi_tpu_torch.cli, nested_hashing_psi_tpu_torch.convert\n"
         f"psi = PSIParams(**{dataclasses.asdict(small_params())!r})\n"
@@ -172,6 +172,7 @@ def test_port_slice_runs_without_jax():
         "_, _, ok = run_in_process(psi, ht, device='cpu')\n"
         "assert ok\n"
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n"
+        "assert 'nested_hashing_psi_tpu' not in sys.modules\n"
         "print('NO_JAX_OK')\n"
     )
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
