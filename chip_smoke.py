@@ -11,8 +11,11 @@
    the form the kernel chose and in both forced forms, with its bound and
    share of it), K2 (position sum, whole table and an in-place slice
    p0 = 3, w = 3 of P = 12) and K3 (the int8 tensor-core NTT, q and aux
-   bases, also held against K1; K3 has no caller on the protocol path, so
-   its launches come from this phase);
+   bases, also held against K1, beside its digit products alone as
+   torch._int_mm from a CUDA graph; K3 has no caller on the protocol path,
+   so its launches come from this phase). The [sass] step counts K3's
+   wgmma (IGMMA) and bulk-copy (UBLKCP, UTMALDG) instructions and fails
+   without them;
 2. drives the port's main path through its user entry points
    (``cli.parse_args`` + ``protocol.runner.run_in_process``): BatchedFHE
    with BFV at the 2^20-server x 2048-client geometry, ring 16384, three
@@ -239,6 +242,54 @@ def k1_instruction_mix(lib_path: str, nvcc: str) -> str:
     return "; ".join(parts) or "no n = 16384 top-window kernel found"
 
 
+def k3_sass_counts(lib_path: str, nvcc: str) -> dict:
+    """IGMMA (wgmma) and bulk-copy / TMA instructions in K3's kernels, from
+    `cuobjdump -sass` of the built library."""
+    tool = os.path.join(os.path.dirname(nvcc), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", lib_path], capture_output=True, text=True,
+                          timeout=300).stdout
+    counts = {"kernels": 0, "IGMMA": 0, "UBLKCP": 0, "UTMALDG": 0}
+    for fn in sass.split("Function : ")[1:]:
+        if "ntt_mxu_kernel" not in fn.split("\n", 1)[0]:
+            continue
+        counts["kernels"] += 1
+        for ln in fn.splitlines():
+            for op in ("IGMMA", "UBLKCP", "UTMALDG"):
+                counts[op] += f" {op}" in ln
+    return counts
+
+
+def int8_products_ms(mplan, x, D: int) -> float:
+    """The digit products of one K3 forward call alone (D digits), as torch._int_mm
+    (PyTorch's int8 tensor-core matrix product), 2L calls from a CUDA graph:
+    per prime, stage 1 the five G1 stacked, (5 m1, 5 m1), @ the rows' digit
+    stack, (5 m1, m2 R); stage 2 the digit stack, (m1 R, 5 m2), @ the five
+    G2 side by side, (5 m2, 5 m2). The same tables and shapes as the kernel;
+    the second stage's digits are the input's (the kernel keeps its
+    intermediate on chip). The port never calls _int_mm."""
+    import torch
+
+    L, m1, m2, dev = mplan.L, mplan.m1, mplan.m2, x.device
+    X = x.reshape(-1, L, m1, m2).long()
+    R = X.shape[0]
+    calls = []
+    for l in range(L):
+        Xl = X[:, l]
+        left = torch.cat([(Xl >> (7 * j)) & 127 for j in range(D)], dim=1).to(torch.int8)
+        right = torch.cat([(Xl >> (7 * j)) & 127 for j in range(D)], dim=2).to(torch.int8)
+        g1 = torch.from_numpy(mplan.G1[l].reshape(D * m1, D * m1)).to(dev)
+        g2 = torch.from_numpy(mplan.G2[l]).permute(1, 0, 2).reshape(D * m2, D * m2).to(dev)
+        calls.append((g1, left.permute(0, 2, 1).reshape(R * m2, D * m1).contiguous()))
+        calls.append((right.reshape(R * m1, D * m2), g2.t().contiguous()))
+    outs = [torch.empty((a.shape[0], bt.shape[0]), dtype=torch.int32, device=dev)
+            for a, bt in calls]
+
+    def run():
+        for (a, bt), o in zip(calls, outs):
+            torch._int_mm(a, bt.t(), out=o)
+    return graph_ms(run, iters=10)
+
+
 def max_err(got, want, name: str) -> int:
     import torch
 
@@ -355,6 +406,13 @@ def main() -> None:
           f"{time.perf_counter() - t0:.2f} s; {ptxas_summary(report)}", flush=True)
     print("[sass] K1 top window, n = 16384: "
           f"{k1_instruction_mix(cuda_lib.LIB_PATH, cuda_lib.find_nvcc())}", flush=True)
+    k3_sass = k3_sass_counts(cuda_lib.LIB_PATH, cuda_lib.find_nvcc())
+    print(f"[sass] K3: {k3_sass['kernels']} kernels, IGMMA (wgmma) {k3_sass['IGMMA']}, "
+          f"UBLKCP (bulk copy) {k3_sass['UBLKCP']}, UTMALDG (TMA) {k3_sass['UTMALDG']}; "
+          "registers and spills above under ntt_mxu (the launch count: the consumer "
+          "warpgroups take 232 by setmaxnreg)", flush=True)
+    if k3_sass["IGMMA"] == 0 or k3_sass["UBLKCP"] + k3_sass["UTMALDG"] == 0:
+        fail(f"K3's kernels lack wgmma or bulk-copy instructions: {k3_sass}")
 
     # ---- kernels vs plain at the main path's shapes ---------------------
     T = (1 << 32) + (1 << 20) + (1 << 19) + 1
@@ -471,6 +529,7 @@ def main() -> None:
                    "ntt_mxu_inv": ntt_mxu.launches["intt"]}
     for base, (plan, mplan, x, y, back) in k3.items():
         shape = f"{base} base (2,12,2,{plan.L},{N})"
+        prod_ms = int8_products_ms(mplan, x, ntt_mxu.DIGITS)  # the inverse's are alike
         e_k1 = max(max_err(y, ntt_cuda.ntt(x, plan), "K3 fwd vs K1"),
                    max_err(back, ntt_cuda.intt(y, plan), "K3 inv vs K1"),
                    max_err(back, x, "K3 round trip"))
@@ -484,11 +543,13 @@ def main() -> None:
         ):
             err, ms, plain_ms = compare(f"K3 {name} NTT, {shape}", kfn, pfn)
             k1_ms = time_ms(k1fn, 20)
+            b_ms, b_by = k3_bound(x.numel() // N, plan.L, N, mplan.m1, ntt_mxu.DIGITS)
             print(f"[kernel] K3 {name} NTT, {shape}: max_abs_err vs K1 {e_k1}; "
-                  f"K3 {ms:.4f} ms, K1 {k1_ms:.4f} ms, plain {plain_ms:.4f} ms", flush=True)
-            results[f"ntt_mxu_{key}_{base}"] = (max(err, e_k1), ms, plain_ms, k1_ms,
-                                                *k3_bound(x.numel() // N, plan.L, N, mplan.m1,
-                                                          ntt_mxu.DIGITS))
+                  f"K3 {ms:.4f} ms (share of the {b_ms:.4f} ms bound {b_ms / ms:.3f}), "
+                  f"products alone (torch._int_mm) {prod_ms:.4f} ms, K1 {k1_ms:.4f} ms, "
+                  f"plain {plain_ms:.4f} ms", flush=True)
+            results[f"ntt_mxu_{key}_{base}"] = (max(err, e_k1), ms, plain_ms, k1_ms, prod_ms,
+                                                b_ms, b_by)
     del k3
     torch.cuda.empty_cache()
 
@@ -602,7 +663,8 @@ def main() -> None:
         err, ms, plain_ms = results[key][:3]
         bound_ms, bound_by = results[key][-2:]
         # no PyTorch call computes an exact NTT mod a 31-bit prime or K2's
-        # Montgomery position sum: library_ms is null
+        # Montgomery position sum: library_ms is null (K3's int8_products_ms
+        # times its matrix products alone, not the NTT)
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": launched, "max_abs_err": err, "ms": ms,
                 "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
@@ -619,10 +681,10 @@ def main() -> None:
               "pie_ip", launches["pie_ip"]),
         entry("ntt_mxu_fwd", f"{csrc}/ntt_mxu.cu", "nested_hashing_psi_tpu/ops/ntt_mxu.py:323",
               "ntt_mxu_fwd_q", k3_launches["ntt_mxu_fwd"], launches_from=k3_note,
-              k1_ms=results["ntt_mxu_fwd_q"][3]),
+              k1_ms=results["ntt_mxu_fwd_q"][3], int8_products_ms=results["ntt_mxu_fwd_q"][4]),
         entry("ntt_mxu_inv", f"{csrc}/ntt_mxu.cu", "nested_hashing_psi_tpu/ops/ntt_mxu.py:330",
               "ntt_mxu_inv_q", k3_launches["ntt_mxu_inv"], launches_from=k3_note,
-              k1_ms=results["ntt_mxu_inv_q"][3]),
+              k1_ms=results["ntt_mxu_inv_q"][3], int8_products_ms=results["ntt_mxu_inv_q"][4]),
     ]
     print(smi_line)
     print(json.dumps({"kernels": kernels}))

@@ -39,8 +39,9 @@ _SIGNATURES = {
     "nhpsi_ntt_form": [_P] * 5 + [_I] * 5 + [ctypes.POINTER(_I), _P],
     # (idx, pt, out, primes, pinvs, H, D, P, L, N, p0, P_full, stream)
     "nhpsi_pie_ip": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
-    # (x, y, tmp, ga, gb, tw, rc, primes, pinvs, rows, L, m1, m2, inverse, stream)
-    "nhpsi_ntt_mxu": [_P] * 9 + [_I] * 5 + [_P],
+    # (x, y, tmp, ga, gb, tw, rc, primes, pinvs, rows, L, m1, m2, inverse,
+    #  launched*, stream)
+    "nhpsi_ntt_mxu": [_P] * 9 + [_I] * 5 + [ctypes.POINTER(_I), _P],
 }
 
 

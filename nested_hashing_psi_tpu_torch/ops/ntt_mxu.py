@@ -17,13 +17,17 @@ the five Q_i into S mod p.
 tests/test_torch_ntt_mxu.py). ``ntt_mxu_plain`` / ``intt_mxu_plain`` are the
 plain PyTorch version: the digit products are float64 matmuls, exact because
 every partial sum stays below 2^53. ``ntt_mxu`` / ``intt_mxu`` launch the
-tensor-core kernel (csrc/ntt_mxu.cu) on a CUDA tensor and take the plain
-version on a CPU tensor only; ``launches`` counts kernel launches. Nothing in
-the package calls K3: like the JAX package's, it is an op with its tests.
+tensor-core kernel (csrc/ntt_mxu.cu, wgmma) on a CUDA tensor and take the
+plain version on a CPU tensor only; ``launches`` counts kernel launches (a
+call above n = 16384 runs one launch per stage: two). On the device the
+plan keeps each G in the order and layout the kernel's shared-memory ring
+consumes (``_device_stream``). Nothing in the package calls K3: like the JAX
+package's, it is an op with its tests.
 """
 
 from __future__ import annotations
 
+import ctypes
 from dataclasses import dataclass
 
 import numpy as np
@@ -37,9 +41,13 @@ from nested_hashing_psi_tpu_torch.ops.ntt import bit_reverse_indices
 DIGITS = 5
 DIGIT_BITS = 7
 DIGIT_MASK = (1 << DIGIT_BITS) - 1
-MMA_TILE = 16          # the kernel's int8 tensor-core tile (wmma 16x16x16)
+MMA_TILE = 16          # m1 and m2 must be multiples of this (core-matrix rows)
 FUSED_MAX_N = 16384    # above this csrc/ntt_mxu.cu runs one stage per launch
 MAX_N = 32768          # one stage's digit stack must fit in shared memory
+# csrc/ntt_mxu.cu's wgmma geometry: bytes of K per k-step, k-steps per ring
+# chunk, rows of one wgmma tile, output rows of one pass (two consumer
+# warpgroups)
+KSTEP, CHUNK_STEPS, TILE_ROWS, PASS_ROWS = 32, 4, 64, 128
 
 launches = {"ntt": 0, "intt": 0}
 
@@ -105,14 +113,44 @@ def _digit_stack_right(M: np.ndarray, p: int) -> np.ndarray:
     return _digit_stack(M, p, left=False)
 
 
-def _mma_tiles(G: np.ndarray) -> np.ndarray:
-    """(..., R, C) int8 -> (..., R/16, C/16, 16, 16): each 16x16 tile
-    contiguous and row-major, the layout csrc/ntt_mxu.cu loads from."""
-    *lead, R, C = G.shape
-    t = MMA_TILE
-    return np.ascontiguousarray(
-        G.reshape(*lead, R // t, t, C // t, t).swapaxes(-3, -2)
-    )
+def stage_geometry(left: bool, m1: int, m2: int) -> tuple[int, int, int]:
+    """(passes, k-steps, rows) of one stage in csrc/ntt_mxu.cu: the output's
+    m1 rows (padded to a 64-row wgmma tile) go in passes of 128; K = 5m is
+    cut into 32-byte k-steps, padded to whole ring chunks of 4; a G matrix
+    in one k-step has the pass's rows (left stage, G is the A operand) or m2
+    rows (right stage, G transposed is the B operand)."""
+    mp = max(TILE_ROWS, m1)
+    passes = -(-mp // PASS_ROWS)
+    chunk_k = CHUNK_STEPS * KSTEP
+    ksteps = -(-DIGITS * (m1 if left else m2) // chunk_k) * CHUNK_STEPS
+    return passes, ksteps, (min(mp, PASS_ROWS) if left else m2)
+
+
+def _device_stream(G: np.ndarray, left: bool, m1: int, m2: int) -> np.ndarray:
+    """G (L, DIGITS, m1, 5 m1) of a left stage or (L, DIGITS, 5 m2, m2) of a
+    right one -> (L, bytes) int8, each prime's G in the order the kernel's
+    ring consumes it: per pass (left only), per digit matrix, per k-step,
+    one chunk, a rows x 32 K-major slice in 8-row x 16-byte core matrices
+    (row groups 256 bytes apart, the two 16-byte halves of a k-step 128
+    apart). The right stage's G is stored transposed, (b, k); padded rows
+    and k are zero."""
+    if not left:
+        G = G.swapaxes(-1, -2)
+    passes, ksteps, rows = stage_geometry(left, m1, m2)
+    P = passes if left else 1
+    L = G.shape[0]
+    padded = np.zeros((L, DIGITS, P * rows, ksteps * KSTEP), np.int8)
+    padded[:, :, :G.shape[2], :G.shape[3]] = G
+    t = padded.reshape(L, DIGITS, P, rows // 8, 8, ksteps, 2, 16)
+    return np.ascontiguousarray(t.transpose(0, 2, 1, 5, 3, 6, 4, 7).reshape(L, -1))
+
+
+def _shoup_digit_weights(primes) -> np.ndarray:
+    """(L, 2, DIGITS) uint32: w_i = 2^(7i) mod p and floor(w_i 2^32 / p),
+    the kernel's Shoup pairs for folding Q_i into sum_i 2^(7i) Q_i mod p."""
+    w = [[(1 << (DIGIT_BITS * i)) % p for i in range(DIGITS)] for p in primes]
+    return np.array([[row, [(v << 32) // p for v in row]] for row, p in zip(w, primes)],
+                    np.uint32)
 
 
 @dataclass(eq=False)
@@ -163,8 +201,8 @@ class MxuNTTPlan:
 
     def tensors(self, device) -> dict:
         """The tables on `device`: float64 digit matrices and int64
-        constants for the plain version, and the kernel's operands (digit
-        matrices in 16x16 tiles, int32 bit-views of the uint32 tables)."""
+        constants for the plain version, and the kernel's operands (the G
+        streams of ``_device_stream``, int32 bit-views of the uint32 tables)."""
         device = torch.device(device)
         if device not in self._dev:
             L = self.L
@@ -187,14 +225,14 @@ class MxuNTTPlan:
                 "pinv": i64(self.pinv_arr.reshape(L, 1, 1)),
             }
             if device.type == "cuda":
-                def tiles(G):
-                    return torch.from_numpy(_mma_tiles(G)).to(device)
+                def stream(G, left):
+                    return torch.from_numpy(_device_stream(G, left, self.m1, self.m2)).to(device)
 
                 self._dev[device].update(
-                    G1_tiles=tiles(self.G1), G2_tiles=tiles(self.G2),
-                    iG1_tiles=tiles(self.iG1), iG2_tiles=tiles(self.iG2),
+                    G1_dev=stream(self.G1, True), G2_dev=stream(self.G2, False),
+                    iG1_dev=stream(self.iG1, True), iG2_dev=stream(self.iG2, False),
                     tw_u32=u32(self.tw), itw_u32=u32(self.itw),
-                    rc_u32=u32(self.rc.reshape(L, 3)),
+                    rc_u32=u32(_shoup_digit_weights(self.primes)),
                     p_u32=u32(self.p_arr[:, 0]), pinv_u32=u32(self.pinv_arr[:, 0]),
                 )
         return self._dev[device]
@@ -273,28 +311,31 @@ def _launch(x: torch.Tensor, plan: MxuNTTPlan, inverse: bool) -> torch.Tensor:
     if plan.m1 % MMA_TILE or plan.m2 % MMA_TILE:
         raise ValueError(
             f"K3 needs m1 = {plan.m1} and m2 = {plan.m2} to be multiples of "
-            f"the {MMA_TILE}-wide tensor-core tile (ring {plan.n} is too small)"
+            f"{MMA_TILE} (ring {plan.n} is too small)"
         )
     if plan.n > MAX_N:
         raise ValueError(f"K3 supports rings up to {MAX_N}, not {plan.n}")
     x = x.contiguous()
+    if x.data_ptr() % 16:  # rows are read by bulk copies and 16-byte loads
+        x = x.clone()
     y = torch.empty_like(x)
     tmp = torch.empty_like(x) if plan.n > FUSED_MAX_N else None
     tb = plan.tensors(x.device)
     if inverse:
-        ga, gb, tw = tb["iG2_tiles"], tb["iG1_tiles"], tb["itw_u32"]
+        ga, gb, tw = tb["iG2_dev"], tb["iG1_dev"], tb["itw_u32"]
     else:
-        ga, gb, tw = tb["G1_tiles"], tb["G2_tiles"], tb["tw_u32"]
+        ga, gb, tw = tb["G1_dev"], tb["G2_dev"], tb["tw_u32"]
+    launched = ctypes.c_int(0)
     rc = cuda_lib.get_lib().nhpsi_ntt_mxu(
         x.data_ptr(), y.data_ptr(), None if tmp is None else tmp.data_ptr(),
         ga.data_ptr(), gb.data_ptr(), tw.data_ptr(), tb["rc_u32"].data_ptr(),
         tb["p_u32"].data_ptr(), tb["pinv_u32"].data_ptr(),
         x.numel() // plan.n, plan.L, plan.m1, plan.m2, int(inverse),
-        torch.cuda.current_stream(x.device).cuda_stream,
+        ctypes.byref(launched), torch.cuda.current_stream(x.device).cuda_stream,
     )
     name = "intt" if inverse else "ntt"
+    launches[name] += launched.value
     cuda_lib.check(rc, f"{name}_mxu")
-    launches[name] += 1
     return y
 
 

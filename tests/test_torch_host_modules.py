@@ -194,25 +194,79 @@ def test_protocol_base_export_names_equal(tmp_path):
         assert t_obj.export_path == j_obj.export_path
 
 
-def test_native_helpers_equal():
-    t = (1 << 32) + (1 << 20) + (1 << 19) + 1
-    n = 64
-    from nested_hashing_psi_tpu_torch.fhe.encoding import PackedEncoder
+NATIVE_T = (1 << 32) + (1 << 20) + (1 << 19) + 1
+NATIVE_N = 64
 
-    psi = PackedEncoder(n, t).psi
-    x = np.random.default_rng(5).integers(0, t, size=(3, n), dtype=np.uint64)
-    for inverse in (False, True):
-        got, want = t_native.ntt_mod_t(x, t, psi, inverse), j_native.ntt_mod_t(x, t, psi, inverse)
-        assert got is not None and want is not None
-        np.testing.assert_array_equal(got, want)
+
+def _jax_native_loaded():
+    """The JAX package's native library, only if this process already loaded
+    it: its loader writes the .so in place, so building it here could race a
+    test in another worker (a half-written file fails to load)."""
+    return j_native._lib
+
+
+def _exact_phase_to_mt(phase, qs, t, scheme):
+    """Python-int CRT decode: x = CRT(phase) in [0, q); BFV m = round(t x / q)
+    mod t, BGV m = centred(x) mod t. The noise fraction is the distance of
+    t x / q (BFV) or x / q (BGV) from the nearest integer, maximised."""
+    from fractions import Fraction
+
+    q = 1
+    for p in qs:
+        q *= p
+    lead, n = phase.shape[:-2], phase.shape[-1]
+    rows = phase.reshape(-1, len(qs), n)
+    out = np.zeros((rows.shape[0], n), np.uint64)
+    dist = Fraction(0)
+    for r in range(rows.shape[0]):
+        for j in range(n):
+            x = sum(int(rows[r, i, j]) * (q // p) * pow(q // p, -1, p)
+                    for i, p in enumerate(qs)) % q
+            num = t * x if scheme == "bfv" else x
+            k = (2 * num + q) // (2 * q)  # round(num / q), halves up
+            dist = max(dist, abs(Fraction(num, q) - k))
+            out[r, j] = k % t if scheme == "bfv" else (x - k * q) % t
+    return out.reshape(*lead, n), dist
+
+
+@pytest.mark.parametrize("case", ["ntt_mod_t-forward", "ntt_mod_t-inverse",
+                                  "phase_to_mt-bfv", "phase_to_mt-bgv"])
+def test_native_helpers_equal(case):
+    """The port's native helpers against exact Python-integer references
+    that need no build, and against the JAX package's library where this
+    process has it loaded already."""
+    from nested_hashing_psi_tpu.fhe.encoding import _ntt_object
+    from nested_hashing_psi_tpu_torch.fhe.encoding import PackedEncoder
     from nested_hashing_psi_tpu_torch.ops.primes import ntt_primes
 
+    t, n = NATIVE_T, NATIVE_N
+    helper, arg = case.split("-")
+    j_lib = _jax_native_loaded()
+    if helper == "ntt_mod_t":
+        inverse = arg == "inverse"
+        psi = PackedEncoder(n, t).psi
+        x = np.random.default_rng(5).integers(0, t, size=(3, n), dtype=np.uint64)
+        got = t_native.ntt_mod_t(x, t, psi, inverse)
+        assert got is not None  # the port's own build is atomic and cannot race
+        want = _ntt_object(x.astype(object), t, psi, inverse).astype(np.uint64)
+        np.testing.assert_array_equal(got, want)
+        if j_lib is not None:
+            np.testing.assert_array_equal(got, j_native.ntt_mod_t(x, t, psi, inverse))
+        return
     qs = ntt_primes(4, 31, 2 * n, (t,))
     phase = (np.random.default_rng(6).integers(0, 1 << 62, size=(2, 4, n))
              % np.array(qs, np.int64).reshape(4, 1)).astype(np.uint64)
-    for scheme in ("bfv", "bgv"):
-        (m_t, d_t), (m_j, d_j) = (t_native.phase_to_mt(phase, qs, t, scheme),
-                                  j_native.phase_to_mt(phase, qs, t, scheme))
+    got = t_native.phase_to_mt(phase, qs, t, arg)
+    assert got is not None
+    m_t, d_t = got
+    m_want, d_want = _exact_phase_to_mt(phase, qs, t, arg)
+    np.testing.assert_array_equal(m_t, m_want)
+    # the native noise fraction sums L fixed-point terms, each truncated by
+    # less than q_i * 2^-64 < 2^-33
+    assert abs(d_t - float(d_want)) <= len(qs) * 2.0**-33
+    assert 0.0 <= d_t <= 0.5
+    if j_lib is not None:
+        m_j, d_j = j_native.phase_to_mt(phase, qs, t, arg)
         np.testing.assert_array_equal(m_t, m_j)
         assert d_t == d_j
 

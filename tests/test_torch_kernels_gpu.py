@@ -177,7 +177,12 @@ def test_pie_kernel_matches_plain_main_geometry(cuda):
     assert torch.equal(got, want)
 
 
-@pytest.mark.parametrize("n", [1024, 16384, 32768])
+def _mxu_launches_per_call(n):
+    """K3 runs both stages in one launch up to n = 16384, one per stage above."""
+    return 1 if n <= ntt_mxu.FUSED_MAX_N else 2
+
+
+@pytest.mark.parametrize("n", [1 << k for k in range(8, 16)])
 @pytest.mark.parametrize("base", ["q", "aux"])
 def test_ntt_mxu_kernel_matches_plain_and_k1(cuda, n, base):
     ps = _bases(n)[base]
@@ -186,18 +191,67 @@ def test_ntt_mxu_kernel_matches_plain_and_k1(cuda, n, base):
     before = dict(ntt_mxu.launches)
     got = ntt_mxu.ntt_mxu(x, mp)
     torch.cuda.synchronize()
-    assert ntt_mxu.launches["ntt"] == before["ntt"] + 1
+    assert ntt_mxu.launches["ntt"] == before["ntt"] + _mxu_launches_per_call(n)
     assert torch.equal(got, ntt_mxu.ntt_mxu_plain(x, mp))
     k1 = ntt_cuda.ntt(x, plan)
     assert torch.equal(got, k1)
     back = ntt_mxu.intt_mxu(k1, mp)
     torch.cuda.synchronize()
+    assert ntt_mxu.launches["intt"] == before["intt"] + _mxu_launches_per_call(n)
     assert torch.equal(back, ntt_mxu.intt_mxu_plain(k1, mp))
     assert torch.equal(back, ntt_cuda.intt(k1, plan)) and torch.equal(back, x)
 
 
+@pytest.mark.parametrize("L", [6, 8])
+@pytest.mark.parametrize("per_prime", [1, 7, 133, 397])
+def test_ntt_mxu_kernel_ragged_row_counts(cuda, per_prime, L):
+    """Rows per prime that are no multiple of the 4-row cluster: the CTAs
+    without a row join the cluster's barriers and write nothing."""
+    n = 16384
+    ps = ntt_primes(L, 31, 2 * n, avoid=(T32,))
+    plan, mp = NTTPlan(n, ps), ntt_mxu.MxuNTTPlan(n, ps)
+    x = _residues((per_prime, L, n), ps, seed=per_prime + L).to(cuda)
+    got = ntt_mxu.ntt_mxu(x, mp)
+    want = ntt_cuda.ntt(x, plan)
+    back = ntt_mxu.intt_mxu(want, mp)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.equal(back, x)
+
+
+@pytest.mark.parametrize("n", [16384, 32768])
+def test_ntt_mxu_kernel_unaligned_input(cuda, n):
+    """A view that starts 4 bytes into its storage goes through a copy."""
+    ps = ntt_primes(2, 31, 2 * n)
+    mp = ntt_mxu.MxuNTTPlan(n, ps)
+    x = _residues((3, 2, n), ps, seed=7)
+    flat = torch.cat([torch.zeros(1, dtype=torch.int32), x.reshape(-1)]).to(cuda)
+    view = flat[1:].view(3, 2, n)
+    assert view.data_ptr() % 16 != 0
+    got = ntt_mxu.ntt_mxu(view, mp)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), ntt_mxu.ntt_mxu_plain(x, mp))
+
+
+@pytest.mark.parametrize("n", [16384, 32768])
+def test_ntt_mxu_launch_count(cuda, n):
+    """The fused form (both stages in one launch) counts one launch, the
+    two-launch form above n = 16384 two; a CPU call counts none."""
+    ps = ntt_primes(1, 31, 2 * n)
+    mp = ntt_mxu.MxuNTTPlan(n, ps)
+    x = _residues((2, 1, n), ps, seed=11)
+    ntt_mxu.reset_launches()
+    ntt_mxu.ntt_mxu(x, mp)
+    assert ntt_mxu.launches == {"ntt": 0, "intt": 0}
+    y = ntt_mxu.ntt_mxu(x.to(cuda), mp)
+    ntt_mxu.intt_mxu(y, mp)
+    torch.cuda.synchronize()
+    k = 1 if n == 16384 else 2
+    assert ntt_mxu.launches == {"ntt": k, "intt": k}
+
+
 def test_ntt_mxu_kernel_rejects_small_tiles(cuda):
-    """n = 128 splits as 16 x 8: m2 is not a multiple of the 16-wide tile."""
+    """n = 128 splits as 16 x 8: m2 is not a multiple of 16."""
     ps = ntt_primes(2, 31, 2 * 128)
     mp = ntt_mxu.MxuNTTPlan(128, ps)
     with pytest.raises(ValueError, match="multiples"):

@@ -38,6 +38,44 @@ def test_plan_tables_equal_jax(n):
         np.testing.assert_array_equal(got, want, err_msg=name)
 
 
+def _undo_device_stream(stream, left, m1, m2):
+    """Invert ``_device_stream`` by its byte formula: chunk by chunk (per
+    pass, digit matrix, k-step), a rows x 32 slice whose byte (r, kk)
+    sits at (r/8)*256 + (kk/16)*128 + (r%8)*16 + kk%16. Checks that every
+    byte is placed once and every padding byte is zero."""
+    passes, ksteps, rows = tmxu.stage_geometry(left, m1, m2)
+    R, C = (m1, 5 * m1) if left else (m2, 5 * m2)  # G rows (left) or G^T rows
+    L = stream.shape[0]
+    out = np.zeros((L, 5, R, C), np.int8)
+    hits = np.zeros(stream.shape[1], np.int64)
+    r, kk = np.arange(rows)[:, None], np.arange(32)[None, :]
+    tile = (r // 8) * 256 + (kk // 16) * 128 + (r % 8) * 16 + kk % 16
+    off = 0
+    for ps in range(passes if left else 1):
+        for i in range(5):
+            for ks in range(ksteps):
+                rr, cc = np.broadcast_arrays(ps * rows + r, ks * 32 + kk)
+                idx, ok = off + tile, (rr < R) & (cc < C)
+                out[:, i, rr[ok], cc[ok]] = stream[:, idx[ok]]
+                assert not stream[:, idx[~ok]].any()
+                np.add.at(hits, idx.ravel(), 1)
+                off += rows * 32
+    assert off == stream.shape[1] and (hits == 1).all()
+    return out if left else out.swapaxes(-1, -2)
+
+
+@pytest.mark.parametrize("n", [1 << k for k in range(8, 16)])
+def test_device_layout_undoes_to_jax_tables(n):
+    """The kernel's device copies of G1/G2/iG1/iG2 (K-major core-matrix
+    chunks, G2/iG2 transposed, zero padding) give back the JAX tables."""
+    ps = ntt_primes(1, 31, 2 * n)
+    jp, tp = jmxu.MxuNTTPlan(n, ps), tmxu.MxuNTTPlan(n, ps)
+    for name, left in (("G1", True), ("G2", False), ("iG1", True), ("iG2", False)):
+        dev = tmxu._device_stream(getattr(tp, name), left, tp.m1, tp.m2)
+        np.testing.assert_array_equal(_undo_device_stream(dev, left, tp.m1, tp.m2),
+                                      getattr(jp, name), err_msg=name)
+
+
 def test_host_helpers_equal_jax():
     n, m1 = 512, 32
     p = ntt_primes(1, 31, 2 * n)[0]
