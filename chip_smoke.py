@@ -15,7 +15,10 @@
    torch._int_mm from a CUDA graph; K3 has no caller on the protocol path,
    so its launches come from this phase). The [sass] step counts K3's
    wgmma (IGMMA) and bulk-copy (UBLKCP, UTMALDG) instructions and fails
-   without them;
+   without them. Then K2 at flat --bgv's L = 9, K1 at the BGV paths' shapes
+   (the full-basis relin decompose at L = 9, the leveled chain's switches
+   and relin at 6 and 5 limbs, the SimpleFHE Galois key switches), and
+   ``mod_switch`` on the card against the port on the CPU (bit-equal);
 2. drives the port's main path through its user entry points
    (``cli.parse_args`` + ``protocol.runner.run_in_process``): BatchedFHE
    with BFV at the 2^20-server x 2048-client geometry, ring 16384, three
@@ -32,7 +35,15 @@
 5. builds the one-query server's table twice more with one mask seed, on
    the device and host-resident (pinned, uploaded in position slices), and
    checks that run() is bit-equal, with the default slice rule and with
-   pos_chunk = 3, timing each.
+   pos_chunk = 3, timing each;
+6. drives three more paths the same way: ``--bgv`` at the main geometry
+   (flat BGV, L = 9; 1024 found, the client decrypts on the host), ``--bgv
+   -B 16`` leveled on the main geometry's table with a 4096-item server
+   (L = 6, the result ships 5 limbs; 128 found), both launching K1 and K2
+   and traced as in 3, and SimpleFHE at full width and reduced scale (32
+   inner tables at L = 7; 8 found, K1 launched, the client decrypts on
+   the device; traced over 3 timed and 2 traced queries). The kernel
+   line's launches sum all six runs.
 
 It fails if jax or the JAX package nested_hashing_psi_tpu was imported. It
 prints the card's name and power limit, one JSON line listing the kernels
@@ -61,6 +72,24 @@ RUNS = (("queries=1", []), ("queries=4", ["--queries", "4"]),
         ("streamChunks=4", ["--streamChunks", "4"]))
 EXPECTED_FOUND = 1024
 MASK_SEED = 20240601
+# --bgv at the main geometry: flat BGV at 32-bit items (L = 9 from the
+# package's own rules)
+BGV_FLAGS = MAIN_FLAGS + ["--bgv"]
+# --bgv -B 16, leveled (L = 6, the result ships 5 limbs): the main
+# geometry's table and slots, a 4096-item server set (16-bit items repeat
+# rarely at this size; the generator draws with replacement)
+LEVELED_FLAGS = [
+    "-F", "--batched", "--bgv", "-B", "16", "-S", "4096", "-C", "256", "-I", "128",
+    "-e", "8022", "-E", "12", "-b", "12", "-k", "2", "-K", "2", "--device", "cuda",
+]
+# SimpleFHE (-F without --batched) at full width (ring 16384, 32-bit items,
+# -E 12 -b 12 -k 2 -K 2), reduced scale: 32 inner tables, 768 packed
+# plaintexts at L = 7
+SIMPLE_FLAGS = [
+    "-F", "-B", "32", "-S", "1024", "-C", "16", "-I", "8",
+    "-e", "16", "-E", "12", "-b", "12", "-k", "2", "-K", "2", "--device", "cuda",
+]
+T16 = 65537
 
 # H100 SXM peaks for the bounds: 3.35 TB/s of HBM3 and 1,979 T int8
 # tensor-core ops/s (NVIDIA's data sheet). 32-bit integer instructions run
@@ -311,25 +340,25 @@ def compare(name, kernel_fn, plain_fn, iters=20, plain_iters=3):
     return err, ms, plain_ms
 
 
-def trace_online(pie, idx_ct, minus_ct, timed: int = 20, traced: int = 10) -> dict:
-    """Steady-state online step of one query: host-clock ms over `timed`
-    queries (after 3 warm-ups), then a torch.profiler trace of `traced`
-    more, summed by kernel group from the exported chrome trace."""
+def trace_online(step, timed: int = 20, traced: int = 10, warm: int = 3) -> dict:
+    """Steady-state online step of one query (step()): host-clock ms over
+    `timed` queries (after `warm` warm-ups), then a torch.profiler trace of
+    `traced` more, summed by kernel group from the exported chrome trace."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    for _ in range(3):
-        pie.run(idx_ct, minus_ct)
+    for _ in range(warm):
+        step()
     torch.cuda.synchronize()
     walls = []
     for _ in range(timed):
         t0 = time.perf_counter()
-        pie.run(idx_ct, minus_ct)
+        step()
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(traced):
-            pie.run(idx_ct, minus_ct)
+            step()
         torch.cuda.synchronize()
     with tempfile.TemporaryDirectory() as d:
         path = os.path.join(d, "online_trace.json")
@@ -375,13 +404,15 @@ def main() -> None:
         import torch
 
         from nested_hashing_psi_tpu_torch import cli
+        from nested_hashing_psi_tpu_torch.fhe.bgv import BGVContext, Ciphertext
         from nested_hashing_psi_tpu_torch.fhe.device_decrypt import DeviceDecryptor
-        from nested_hashing_psi_tpu_torch.fhe.params import bfv_mul_limbs
+        from nested_hashing_psi_tpu_torch.fhe.params import SchemeParams, bfv_mul_limbs
         from nested_hashing_psi_tpu_torch.ops import cuda_lib, ntt_cuda, ntt_mxu, pie_kernels
         from nested_hashing_psi_tpu_torch.ops.basis import BFVMulConverter
         from nested_hashing_psi_tpu_torch.ops.ntt import NTTPlan, intt, ntt
         from nested_hashing_psi_tpu_torch.ops.primes import ntt_primes
         from nested_hashing_psi_tpu_torch.pie.batched_fhe import BatchedFHEPIE
+        from nested_hashing_psi_tpu_torch.pie.simple_fhe import SimpleFHEPIE
         from nested_hashing_psi_tpu_torch.protocol.runner import run_in_process
     except ImportError as e:
         fail(f"the port is not importable here ({e}); run from the repository root")
@@ -516,6 +547,62 @@ def main() -> None:
               f"(launch) {b_ms / ms:.3f} (wrapper)", flush=True)
     del idx, pt, idx_s, out
 
+    # ---- K2 and K1 at the BGV paths' shapes; the modulus switch ----------
+    q9 = ntt_primes(9, 31, 2 * N, avoid=(T,))
+    tb9 = NTTPlan(N, q9).tensors(dev)
+    idx = residues((H, P, 2, 9, N), q9)
+    pt = residues((H, D, P, 9, N), q9)
+    results["pie_ip_l9"] = compare(
+        f"K2 position sum, flat --bgv (H,D,P,L,N)=({H},{D},{P},9,{N})",
+        lambda: pie_kernels.indexed_inner_product(idx, pt, tb9["p_u32"], tb9["pinv_u32"]),
+        lambda: pie_kernels.indexed_inner_product_plain(idx, pt, tb9["p"], tb9["pinv"]),
+        plain_iters=2) + k2_bound(H, D, P, 9, N)
+    err, ms, plain_ms, b_ms, b_by = results["pie_ip_l9"]
+    print(f"[kernel] K2 at L = 9: {ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), share "
+          f"{b_ms / ms:.3f}", flush=True)
+    del idx, pt
+    q16 = ntt_primes(6, 31, 2 * N, avoid=(T16,))
+    simple_chunk = SimpleFHEPIE.CHUNK_BYTES // (2 * 12 * 2 * 7 * N * 4 * 9)  # its _pie_chunk
+    q7 = ntt_primes(7, 31, 2 * N, avoid=(T,))
+    for label, inverse, lead, ps in (
+        ("flat --bgv relin, iNTT of d2", True, (12,), q9),
+        ("flat --bgv relin, decompose digits", False, (12, 9), q9),
+        ("leveled mod_switch, iNTT", True, (12, 2), q16),
+        ("leveled mod_switch, child NTT", False, (12, 2), q16[:5]),
+        ("leveled relin at level 1, iNTT of d2", True, (12,), q16[:5]),
+        ("leveled relin at level 1, decompose digits", False, (12, 5), q16[:5]),
+        ("SimpleFHE Galois key switch, iNTT of c1", True, (simple_chunk, 2, 12), q7),
+        ("SimpleFHE Galois key switch, decompose digits", False, (simple_chunk, 2, 12, 7), q7),
+    ):
+        plan = NTTPlan(N, ps)
+        x = residues((*lead, len(ps), N), ps)
+        kfn = (lambda: ntt_cuda.intt(x, plan)) if inverse else (lambda: ntt_cuda.ntt(x, plan))
+        want = intt(x, plan) if inverse else ntt(x, plan)
+        err = max_err(kfn(), want, f"K1 {label}")
+        if err != 0:
+            fail(f"K1 {label}: kernel disagrees with plain (max_abs_err {err})")
+        ms = time_ms(kfn, 10)
+        b_ms, b_by = k1_bound(x.numel() // N, len(ps), N, inverse)
+        print(f"[k1_bgv] {label}: {'inverse' if inverse else 'forward'} "
+              f"{tuple(x.shape)}: max_abs_err 0, kernel {ms:.4f} ms, bound {b_ms:.4f} ms "
+              f"({b_by}), share {b_ms / ms:.3f}", flush=True)
+        del x, want
+    sp16 = SchemeParams(ring_dim=N, plaintext_modulus=T16, num_limbs=6, scheme="bgv")
+    ms_dev, ms_cpu = BGVContext(sp16, device=dev), BGVContext(sp16, device="cpu")
+    ct = Ciphertext(residues((12, 2, 6, N), q16), "bgv", 1)
+    got = ms_dev.mod_switch(ct)
+    t0 = time.perf_counter()
+    want = ms_cpu.mod_switch(Ciphertext(ct.data.cpu(), "bgv", 1))
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    err = max_err(got.data.cpu(), want.data, "mod_switch")
+    if err != 0 or got.scale != want.scale:
+        fail(f"mod_switch on cuda differs from the port on the CPU (max_abs_err {err}, "
+             f"scale {got.scale} vs {want.scale})")
+    print(f"[mod_switch] (12,2,6,{N}) -> {tuple(got.data.shape)}: cuda bit-equal to the "
+          f"CPU port, scale {got.scale}; cuda {time_ms(lambda: ms_dev.mod_switch(ct), 10):.4f} "
+          f"ms (CUDA events), CPU {cpu_ms:.1f} ms", flush=True)
+    del ct, got, want
+
     # ---- K3: its own phase (no caller on the protocol path) ------------
     ntt_mxu.reset_launches()
     k3 = {}
@@ -554,26 +641,30 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # ---- the main path: three protocol runs ----------------------------
-    launches, peaks = {"ntt_fwd": 0, "ntt_inv": 0, "pie_ip": 0}, []
-    runs = {}
-    for label, extra in RUNS:
+    launches, runs = {"ntt_fwd": 0, "ntt_inv": 0, "pie_ip": 0}, {}
+
+    def drive(label, flags):
+        """One protocol run through the user entry points, the launch counts
+        set to 0 just before it and read just after; prints its [main] line
+        and fails unless it verified with the expected intersection."""
         ntt_cuda.reset_launches()
         pie_kernels.reset_launches()
         torch.cuda.reset_peak_memory_stats()
-        psi, ht, device = cli.parse_args(MAIN_FLAGS + extra)
+        psi, ht, device = cli.parse_args(flags)
         t0 = time.perf_counter()
         client, server, ok = run_in_process(psi, ht, device=device)
         wall = time.perf_counter() - t0
         got = {"ntt_fwd": ntt_cuda.launches["ntt"], "ntt_inv": ntt_cuda.launches["intt"],
                "pie_ip": pie_kernels.launches}
-        peaks.append(torch.cuda.max_memory_allocated() / 2**30)
+        peak = torch.cuda.max_memory_allocated() / 2**30
         found = len(client.intersection_calculated)
-        Q = psi.num_queries
-        m = client.measurements
+        Q, m, pie = psi.num_queries, client.measurements, server.pie
         noise = "n/a (device decrypt)" if client.noise_bits is None else f"{client.noise_bits:.1f}"
-        print(f"[main] {label} ring={psi.ring_dim} L={server.ctx.L} "
-              f"mul_limbs={server.pie.mul_limbs} ship_limbs={server.pie.ship_limbs} "
-              f"table_pt={tuple(server.pie.table_pt.shape)} host_table={server.pie.host_table} "
+        print(f"[main] {label} ring={psi.ring_dim} scheme={server.ctx.default_form} "
+              f"L={server.ctx.L} leveled={getattr(pie, 'leveled', None)} "
+              f"mul_limbs={getattr(pie, 'mul_limbs', None)} "
+              f"ship_limbs={getattr(pie, 'ship_limbs', None)} "
+              f"table_pt={tuple(pie.table_pt.shape)} host_table={pie.host_table} "
               f"found={found} noise_bits={noise} wall {wall:.2f} s | "
               f"setup {m['Setup'].duration_us / 1e6:.3f} s offline "
               f"{m['Offline'].duration_us / 1e6:.3f} s online "
@@ -581,34 +672,49 @@ def main() -> None:
               f"{server.offline_computation_us / 1e6:.3f} s online "
               f"{server.online_computation_us / 1e3:.3f} ms = "
               f"{server.online_computation_us / 1e3 / Q:.3f} ms/query | launches {got} "
-              f"| peak device memory {peaks[-1]:.3f} GiB", flush=True)
-        if not ok or found != EXPECTED_FOUND:
+              f"| peak device memory {peak:.3f} GiB", flush=True)
+        if not ok or found != psi.intersection_set_size:
             fail(f"main path ({label}) did not verify: ok={ok} found={found}")
+        for k in launches:
+            launches[k] += got[k]
+        runs[label] = (client, server)
+        return client, server, got
+
+    for label, extra in RUNS:
+        client, _, got = drive(label, MAIN_FLAGS + extra)
+        if len(client.intersection_calculated) != EXPECTED_FOUND:
+            fail(f"main path ({label}) found {len(client.intersection_calculated)}")
         if min(got.values()) <= 0:
             fail(f"the main path ({label}) did not launch every kernel: {got}")
         if not client._decryptors:
             fail(f"the client ({label}) did not decrypt on the device")
-        for k in launches:
-            launches[k] += got[k]
-        runs[label] = (client, server)
     print(f"[main] kernel launches over the three runs {launches}", flush=True)
 
     # ---- steady-state online step, traced --------------------------------
+    def traced(label, k1_bound_note="", timed=20, n_traced=10, warm=3):
+        """trace_online of a run's one-query server, printed."""
+        client, server = runs[label]
+        if hasattr(client, "minus_ct"):  # BatchedFHE
+            tr = trace_online(lambda: server.pie.run(client.idx_ct, client.minus_ct),
+                              timed, n_traced, warm)
+        else:
+            tr = trace_online(lambda: server.pie.run(client.idx_ct), timed, n_traced, warm)
+        device_ms = sum(tr[f"{g}_ms_per_query"] for g in ("K1", "K2", "plain"))
+        print(f"[trace] {label}: online step, one query, steady state: wall median "
+              f"{tr['wall_ms_median']:.3f} ms (min {tr['wall_ms_min']:.3f}, max "
+              f"{tr['wall_ms_max']:.3f}) over {timed} queries; traced {n_traced}: device "
+              f"{device_ms:.3f} ms/query, K1 {tr['K1_ms_per_query']:.4f} ms/query "
+              f"({tr['K1_launches_per_query']:.0f} launches{k1_bound_note}), K2 "
+              f"{tr['K2_ms_per_query']:.4f} ms/query ({tr['K2_launches_per_query']:.0f}), "
+              f"plain PyTorch {tr['plain_ms_per_query']:.3f} ms/query "
+              f"({tr['plain_launches_per_query']:.0f}); busy share {tr['busy_share']:.3f}",
+              flush=True)
+        print(f"[trace] {label}: K1 by kernel, per query: " + "; ".join(
+            f"{k} {ms:.4f} ms ({n:.0f})" for k, (ms, n) in sorted(tr["k1_kernels"].items())),
+            flush=True)
+
+    traced("queries=1", f"; bound {k1_query['bound_ms']:.4f} ms")
     client, server = runs["queries=1"]
-    tr = trace_online(server.pie, client.idx_ct, client.minus_ct)
-    device_ms = sum(tr[f"{g}_ms_per_query"] for g in ("K1", "K2", "plain"))
-    print(f"[trace] online step, one query, steady state: wall median "
-          f"{tr['wall_ms_median']:.3f} ms (min {tr['wall_ms_min']:.3f}, max "
-          f"{tr['wall_ms_max']:.3f}) over 20 queries; traced 10: device "
-          f"{device_ms:.3f} ms/query, K1 {tr['K1_ms_per_query']:.4f} ms/query "
-          f"({tr['K1_launches_per_query']:.0f} launches; bound "
-          f"{k1_query['bound_ms']:.4f} ms), K2 {tr['K2_ms_per_query']:.4f} ms/query "
-          f"({tr['K2_launches_per_query']:.0f}), plain PyTorch {tr['plain_ms_per_query']:.3f} "
-          f"ms/query ({tr['plain_launches_per_query']:.0f}); busy share "
-          f"{tr['busy_share']:.3f}", flush=True)
-    print("[trace] K1 by kernel, per query: " + "; ".join(
-        f"{k} {ms:.4f} ms ({n:.0f})" for k, (ms, n) in sorted(tr["k1_kernels"].items())),
-        flush=True)
 
     # ---- device decrypt vs host decrypt on the one-query result ---------
     result = server.pie.run(client.idx_ct, client.minus_ct)
@@ -654,6 +760,35 @@ def main() -> None:
               f"table; online {ms_host:.3f} ms vs device table {ms_dev:.3f} ms "
               f"(table {pie_host.table_pt.numel() * 4 / 2**20:.1f} MiB pinned; build "
               f"{t2 - t1:.2f} s host vs {t1 - t0:.2f} s device)", flush=True)
+    # ---- --bgv (flat, then leveled) and SimpleFHE -----------------------
+    client, server, got = drive("bgv flat", BGV_FLAGS)
+    if server.ctx.L != 9 or server.pie.leveled or len(client.intersection_calculated) != 1024:
+        fail(f"flat --bgv: L={server.ctx.L} leveled={server.pie.leveled}, expected L = 9 flat")
+    if min(got.values()) <= 0:
+        fail(f"flat --bgv did not launch K1 and K2: {got}")
+    if client._decryptors or client.noise_bits is None:
+        fail("the flat --bgv client did not decrypt on the host")
+    client, server, got = drive("bgv leveled", LEVELED_FLAGS)
+    shipped = server.pie.run(client.idx_ct, client.minus_ct).data.shape[-2]
+    print(f"[main] bgv leveled: the result ships {shipped} limbs", flush=True)
+    if server.ctx.L != 6 or not server.pie.leveled or shipped != 5:
+        fail(f"leveled --bgv: L={server.ctx.L} leveled={server.pie.leveled} shipped {shipped}")
+    if min(got.values()) <= 0:
+        fail(f"leveled --bgv did not launch K1 and K2: {got}")
+    if client._decryptors or client.noise_bits is None:
+        fail("the leveled --bgv client did not decrypt on the host")
+    traced("bgv flat")
+    traced("bgv leveled")
+    client, server, got = drive("SimpleFHE", SIMPLE_FLAGS)
+    if server.ctx.L != 7 or server.pie._pie_chunk() != simple_chunk:
+        fail(f"SimpleFHE: L={server.ctx.L}, pie chunk {server.pie._pie_chunk()}")
+    if got["ntt_fwd"] <= 0 or got["ntt_inv"] <= 0:
+        fail(f"SimpleFHE did not launch K1: {got}")
+    if client.decryptor is None:
+        fail("the SimpleFHE client did not decrypt on the device")
+    traced("SimpleFHE", timed=3, n_traced=2, warm=1)
+    print(f"[main] kernel launches over all six runs {launches}", flush=True)
+
     loaded = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
                     or m == "nested_hashing_psi_tpu" or m.startswith("nested_hashing_psi_tpu."))
     if loaded:
@@ -678,7 +813,9 @@ def main() -> None:
         entry("ntt_inv", f"{csrc}/ntt.cu", "nested_hashing_psi_tpu/ops/ntt_pallas.py:645",
               "intt_q", launches["ntt_inv"]),
         entry("pie_ip", f"{csrc}/pie_ip.cu", "nested_hashing_psi_tpu/ops/pie_kernels.py:48",
-              "pie_ip", launches["pie_ip"]),
+              "pie_ip", launches["pie_ip"], **dict(zip(
+                  ("l9_max_abs_err", "l9_ms", "l9_plain_ms", "l9_bound_ms", "l9_bound_by"),
+                  results["pie_ip_l9"]))),
         entry("ntt_mxu_fwd", f"{csrc}/ntt_mxu.cu", "nested_hashing_psi_tpu/ops/ntt_mxu.py:323",
               "ntt_mxu_fwd_q", k3_launches["ntt_mxu_fwd"], launches_from=k3_note,
               k1_ms=results["ntt_mxu_fwd_q"][3], int8_products_ms=results["ntt_mxu_fwd_q"][4]),

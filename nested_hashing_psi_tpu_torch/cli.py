@@ -1,12 +1,13 @@
 """Command-line entry points of the port (PyTorch + CUDA), the counterpart of
 ``nested_hashing_psi_tpu.cli`` with the same flags plus ``--device``:
 
-    python -m nested_hashing_psi_tpu_torch.cli server -F --batched [flags]
-    python -m nested_hashing_psi_tpu_torch.cli client -F --batched [flags]
+    python -m nested_hashing_psi_tpu_torch.cli server -F --batched [--bgv] [flags]
+    python -m nested_hashing_psi_tpu_torch.cli client -F --batched [--bgv] [flags]
 
 ``--device`` defaults to ``cuda`` and fails when no GPU is present; pass
-``--device cpu`` to run on the CPU. Only BatchedFHE (``-F --batched``) is
-ported; other protocols raise NotImplementedError.
+``--device cpu`` to run on the CPU. BatchedFHE (``-F --batched``) and
+SimpleFHE (``-F``) are ported, each under BFV or ``--bgv``; the ElGamal
+protocols (no ``-F``) raise NotImplementedError.
 """
 
 from __future__ import annotations

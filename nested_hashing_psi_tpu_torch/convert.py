@@ -1,9 +1,10 @@
 """State carried between the JAX package and the port, as numpy arrays.
 
 Residues are uint32 in the JAX package and on the wire, int32 (same bits,
-values in [0, p) < 2**31) in the port. These helpers move keys, ciphertexts
-and the PIE's packed tables across in both directions, so both packages can
-compute on the same keys and tables.
+values in [0, p) < 2**31) in the port. These helpers move keys (secret,
+relin and Galois), ciphertexts (with their form and scale) and both PIEs'
+tables across in both directions, so both packages can compute on the same
+keys and tables.
 """
 
 from __future__ import annotations
@@ -59,6 +60,20 @@ def ciphertext_from_numpy(data, device, form: str = "bfv", scale: int = 1) -> Ci
     return Ciphertext(from_numpy(data, device), form, scale)
 
 
+def ciphertext_to_numpy(ct: Ciphertext) -> tuple[np.ndarray, str, int]:
+    """(data, form, scale): a BGV-form ciphertext keeps its mod-t scale."""
+    return to_numpy(ct.data), ct.form, int(ct.scale)
+
+
+def galois_keys_from_numpy(keys: dict, device) -> dict[int, RelinKey]:
+    """{Galois element: (b_mont, a_mont)} -> {element: RelinKey}."""
+    return {int(k): relin_key_from_numpy(b, a, device) for k, (b, a) in keys.items()}
+
+
+def galois_keys_to_numpy(gks: dict[int, RelinKey]) -> dict[int, tuple[np.ndarray, np.ndarray]]:
+    return {int(k): relin_key_to_numpy(g) for k, g in gks.items()}
+
+
 def pie_tables_to_numpy(pie) -> tuple[np.ndarray, np.ndarray]:
     """(table_pt, mask_pt) of a port BatchedFHEPIE as uint32 arrays."""
     return to_numpy(pie.table_pt), to_numpy(pie.mask_pt)
@@ -70,3 +85,18 @@ def load_pie_tables(pie, table_pt, mask_pt) -> None:
     keeps its host layout)."""
     pie.table_pt.copy_(from_numpy(table_pt, pie.table_pt.device))
     pie.mask_pt.copy_(from_numpy(mask_pt, pie.mask_pt.device))
+
+
+def simple_pie_tables_to_numpy(pie) -> tuple[np.ndarray, ...]:
+    """(table_pt, sel_pt, mask_pt, hf_perm) of a port SimpleFHEPIE: the
+    plaintexts as uint32 arrays, the hash-function permutation as int64."""
+    return (to_numpy(pie.table_pt), to_numpy(pie.sel_pt), to_numpy(pie.mask_pt),
+            pie.hf_perm.cpu().numpy())
+
+
+def load_simple_pie_tables(pie, table_pt, sel_pt, mask_pt, hf_perm) -> None:
+    """Overwrite a port SimpleFHEPIE's tables with the given (e.g. the JAX
+    package's) arrays, in place."""
+    for buf, arr in ((pie.table_pt, table_pt), (pie.sel_pt, sel_pt), (pie.mask_pt, mask_pt)):
+        buf.copy_(from_numpy(arr, buf.device))
+    pie.hf_perm.copy_(torch.from_numpy(np.asarray(hf_perm, np.int64)))

@@ -1,11 +1,13 @@
-"""RNS-BFV scheme layer (PyTorch): the BatchedFHE main path's scheme.
+"""RNS-BFV scheme layer (PyTorch): the reference's default scheme.
 
-Counterpart of ``nested_hashing_psi_tpu.fhe.bfv``, limited to the rescaled
-pipeline: scale-invariant (MSB) encoding with phase Delta*m + e, textbook
-HPS ct x ct (``ops.basis.BFVMulConverter``), the exact drop-limb rescale
-(``ops.basis.RNSRescale``), the fused ``hps_mul_relin_rescaled`` and the
-host decode of a BFV phase. The t-scaling bridge and the unrescaled
-``ct_ct_mul[_relin]`` are not on the main path and are not ported.
+Counterpart of ``nested_hashing_psi_tpu.fhe.bfv``: scale-invariant (MSB)
+encoding with phase Delta*m + e, textbook HPS ct x ct
+(``ops.basis.BFVMulConverter``) on the full basis (``ct_ct_mul``, the fused
+``ct_ct_mul_relin``) or after the exact drop-limb rescale
+(``ops.basis.RNSRescale``, ``rescale_ct``, the fused
+``hps_mul_relin_rescaled``), the exact t-scaling bridge to BGV form
+(``ct_ct_mul_bridge``, with the Delta-lifting relinearisation) and the host
+decode of a BFV phase. ``make_context`` picks BGV or BFV from the scheme.
 """
 
 from __future__ import annotations
@@ -33,11 +35,69 @@ class BFVContext(BGVContext):
         self.delta_mont = self._col([((delta % p) << 32) % p for p in self.q_primes])
         # noise is plain e (the message sits in the MSB)
         self.noise_mont = self._col([(1 << 32) % p for p in self.q_primes])
+        self.r_t = params.q % self.t  # the BGV bridge's message factor is -r_t
         self._mulconv: BFVMulConverter | None = None
         self._rescalers: dict[int, RNSRescale] = {}
 
     def _msg_prep(self, m_ntt):
         return mont_mul(m_ntt, self.delta_mont, self.p, self.pinv)
+
+    def ct_ct_mul(self, a: Ciphertext, b: Ciphertext) -> Ciphertext:
+        """EvalMult(ct, ct): textbook HPS for BFV-form operands; the
+        t-scaling bridge handles mixed forms."""
+        if a.form == "bfv" and b.form == "bfv":
+            return self._hps_mul_impl(a, b)
+        return super().ct_ct_mul(a, b)
+
+    def ct_ct_mul_bridge(self, a: Ciphertext, b: Ciphertext) -> Ciphertext:
+        """The exact t-scaling bridge: both operands times t (BGV form,
+        message -r_t*m), then a BGV tensor product."""
+        return super().ct_ct_mul(a, b)
+
+    def _hps_mul_impl(self, a: Ciphertext, b: Ciphertext) -> Ciphertext:
+        out = self._ntt_fast(self._hps_core(a.data, b.data))
+        return Ciphertext(out, "bfv", a.scale * b.scale % self.t)
+
+    def ct_ct_mul_relin(self, a: Ciphertext, b: Ciphertext, rlk) -> Ciphertext:
+        """Fused EvalMult + relinearisation for BFV-form operands on the full
+        basis: the HPS product's d2 stays in the coefficient domain and feeds
+        the gadget decompose directly (no forward NTT of d2, no inverse NTT
+        in the decompose)."""
+        if a.form == "bfv" and b.form == "bfv":
+            return self._hps_mul_relin_impl(a, b, rlk)
+        return super().ct_ct_mul_relin(a, b, rlk)
+
+    def _hps_mul_relin_impl(self, a: Ciphertext, b: Ciphertext, rlk) -> Ciphertext:
+        y = self._hps_core(a.data, b.data)  # (..., 3, L, N) coefficients
+        d01 = self._ntt_fast(y[..., :2, :, :])
+        ks0, ks1 = self._key_switch_coeffs(y[..., 2, :, :], rlk)
+        data = torch.stack(
+            [add_mod(d01[..., 0, :, :], ks0, self.p), add_mod(d01[..., 1, :, :], ks1, self.p)],
+            dim=-3,
+        )
+        return Ciphertext(data, "bfv", a.scale * b.scale % self.t)
+
+    def _relinearize_impl(self, ct: Ciphertext, rlk) -> Ciphertext:
+        """A BGV-form product (the t-scaling bridge) is Delta-lifted to BFV
+        form before key switching: this context's keys carry plain noise,
+        which would land in the mod-t message of a BGV-form phase. Times
+        Delta, the phase is Delta*m - r_t*e (Delta*t = q - r_t), where the
+        key-switch noise is absorbed by the rounding decrypt. Exact."""
+        if ct.form == "bgv":
+            ct = Ciphertext(
+                mont_mul(ct.data, self.delta_mont, self.p, self.pinv), "bfv", ct.scale
+            )
+        return super()._relinearize_impl(ct, rlk)
+
+    def _to_mul_form(self, ct: Ciphertext) -> Ciphertext:
+        """BFV form -> BGV form: multiply by t; the message becomes -r_t*m."""
+        if ct.form == "bgv":
+            return ct
+        return Ciphertext(
+            mont_mul(ct.data, self.t_mont, self.p, self.pinv),
+            "bgv",
+            ct.scale * (self.t - self.r_t) % self.t,
+        )
 
     @property
     def mulconv(self) -> BFVMulConverter:
@@ -86,6 +146,18 @@ class BFVContext(BGVContext):
         child basis (exact integer rescale; see RNSRescale)."""
         assert 1 <= n_limbs < self.L
         return self._rescaler(n_limbs).rescale(coeffs)
+
+    def rescale_ct(self, ct: Ciphertext, n_limbs: int) -> Ciphertext:
+        """Modulus-switch a BFV-form ciphertext down to n_limbs limbs.
+        Noise: e' ~ e/qd + t*small (fhe.params.bfv_mul_limbs model)."""
+        assert ct.form == "bfv"
+        if n_limbs >= self.L:
+            return ct
+        child = self.context_for_limbs(n_limbs)
+        coeffs = self._intt_fast(ct.data)
+        return Ciphertext(
+            child._ntt_fast(self.rescale_coeffs(coeffs, n_limbs)), ct.form, ct.scale
+        )
 
     def hps_mul_relin_rescaled(
         self,
@@ -182,14 +254,15 @@ class BFVContext(BGVContext):
         return out.reshape(phase.shape[:-2] + (self.n,)), 0.0
 
 
-def make_context(params: SchemeParams, seed: int | None = 0, *, device) -> BFVContext:
-    """Scheme factory on an explicit device. seed=None draws the generator
-    seed from OS entropy (secrets) -- required wherever secret keys are made
-    in production paths; an explicit int seed is for tests only."""
-    if params.scheme != "bfv":
-        raise NotImplementedError("BGV (--bgv) is not ported yet")
+def make_context(params: SchemeParams, seed: int | None = 0, *, device) -> BGVContext:
+    """Scheme factory matching the reference's --bgv switch, on an explicit
+    device. seed=None draws the generator seed from OS entropy (secrets) --
+    required wherever secret keys are made in production paths; an explicit
+    int seed is for tests only."""
     if seed is None:
         import secrets
 
         seed = secrets.randbits(63)
-    return BFVContext(params, seed, device=device)
+    if params.scheme == "bfv":
+        return BFVContext(params, seed, device=device)
+    return BGVContext(params, seed, device=device)

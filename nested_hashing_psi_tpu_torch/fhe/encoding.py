@@ -1,9 +1,9 @@
 """SIMD packed plaintext encoding (slot packing), host numpy.
 
-A copy of ``nested_hashing_psi_tpu.fhe.encoding`` together with the two
-helpers it reaches in jax-loading modules: the numpy NTT of
-``ops/refmodel.py`` (``ntt_numpy``/``intt_numpy``) and ``slot_to_ntt_pos``
-of ``fhe/galois.py``. tests/test_torch_host_copies.py pins ``encode``,
+A copy of ``nested_hashing_psi_tpu.fhe.encoding`` together with the numpy
+NTT of ``ops/refmodel.py`` (``ntt_numpy``/``intt_numpy``), which it reaches
+in a jax-loading module; ``slot_to_ntt_pos`` is the port's ``fhe/galois.py``
+copy, re-exported here. tests/test_torch_host_copies.py pins ``encode``,
 ``to_rns`` and ``decode`` equal to the originals.
 
 For prime t with 2n | t-1 the ring Z_t[x]/(x^n+1) fully splits: the
@@ -20,10 +20,9 @@ Two execution paths:
 
 from __future__ import annotations
 
-import functools
-
 import numpy as np
 
+from nested_hashing_psi_tpu_torch.fhe.galois import slot_to_ntt_pos
 from nested_hashing_psi_tpu_torch.ops import primes as primes_mod
 
 
@@ -79,32 +78,6 @@ def intt_numpy(a: np.ndarray, p: int, psi: int) -> np.ndarray:
         m = h
     x = x.reshape(*a.shape)
     return x * np.uint64(pow(n, -1, p)) % pp
-
-
-@functools.lru_cache(maxsize=None)
-def slot_to_ntt_pos(n: int) -> np.ndarray:
-    """slot j -> NTT output position evaluating at the slot's exponent
-    (5^j for j < n/2, 2n - 5^(j-n/2) otherwise)."""
-    p0 = primes_mod.ntt_primes(1, 31, 2 * n)[0]
-    psi0 = primes_mod.primitive_root_of_unity(p0, 2 * n)
-    mono = np.zeros(n, dtype=np.uint64)
-    mono[1] = 1  # the polynomial x: its NTT at position k is psi0^E[k]
-    out = ntt_numpy(mono, p0, psi0)
-    dlog = {}
-    v = psi0
-    for e in range(1, 2 * n, 2):
-        dlog[v] = e
-        v = v * psi0 % p0
-        v = v * psi0 % p0
-    pos_of_exp = {dlog[int(x)]: i for i, x in enumerate(out)}
-    half = n // 2
-    exps = np.zeros(n, dtype=np.int64)
-    e = 1
-    for j in range(half):
-        exps[j] = e
-        exps[half + j] = 2 * n - e
-        e = e * 5 % (2 * n)
-    return np.array([pos_of_exp[int(e)] for e in exps], dtype=np.int64)
 
 
 def _ntt_object(a: np.ndarray, p: int, psi: int, inverse: bool) -> np.ndarray:

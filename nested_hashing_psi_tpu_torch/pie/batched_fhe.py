@@ -10,11 +10,15 @@ per-depth random masks folded into hash 0's table plaintexts. Slot c of any
 depth decrypting to 0 means the client's item in cuckoo slot c is in the
 intersection.
 
-The position sum is K2 (``ops.pie_kernels``); every transform is K1. Ported:
-the BFV rescaled-mult pipeline (and the trivial H = 1 case), the streamed
-upload (``run_streamed``) and the host-resident table (``host_table=True``,
-``_run_host_table``). The leveled BGV chain and the unrescaled cross-hash
-product are not ported and raise ``NotImplementedError``.
+The position sum is K2 (``ops.pie_kernels``); every transform is K1. The
+cross-hash product takes one of three pipelines, as in the JAX package: the
+rescaled BFV pipeline (``mul_limbs < L``: HPS + relin on a smaller basis,
+the result shipped on ``ship_limbs``), the flat product on the full basis
+(BGV tensor product or BFV HPS, then relin), or the leveled BGV chain
+(``leveled=True``: one limb dropped by ``mod_switch`` before each
+multiplication, the result shipped on L - (H-1) limbs). The streamed upload
+(``run_streamed``) and the host-resident table (``host_table=True``,
+``_run_host_table``) run every pipeline.
 """
 
 from __future__ import annotations
@@ -27,8 +31,7 @@ from torch import nn
 
 from nested_hashing_psi_tpu_torch.hashing.cuckoo import CuckooHashTable
 from nested_hashing_psi_tpu_torch.hashing.hierarchical import HierarchicalCuckooHashTable
-from nested_hashing_psi_tpu_torch.fhe.bfv import BFVContext
-from nested_hashing_psi_tpu_torch.fhe.bgv import Ciphertext, RelinKey, SecretKey
+from nested_hashing_psi_tpu_torch.fhe.bgv import BGVContext, Ciphertext, RelinKey, SecretKey
 from nested_hashing_psi_tpu_torch.fhe.params import bfv_mul_limbs, bfv_ship_limbs
 from nested_hashing_psi_tpu_torch.ops.modmath import add_mod, mont_mul
 from nested_hashing_psi_tpu_torch.ops.pie_kernels import indexed_inner_product
@@ -41,25 +44,26 @@ def _zero_slots(result_slots: np.ndarray) -> np.ndarray:
 
 
 def batched_pie_forward(
-    ctx: BFVContext,
+    ctx: BGVContext,
     rlk: RelinKey,
     idx_data: torch.Tensor,    # (H, P, 2, L, N) index ciphertexts
     minus_data: torch.Tensor,  # (2, L, N) minus-element ciphertext
     table_pt: torch.Tensor,    # (H, D, P, L, N) packed server table (Montgomery)
     mask_pt: torch.Tensor,     # (D, L, N) per-depth masks (Montgomery)
+    leveled: bool = False,
     mul_limbs: int | None = None,
     ship_limbs: int | None = None,
 ) -> Ciphertext:
     """The online step: position sums (K2), then combine_ip. Returns the
-    result Ciphertext (D, 2, L', N)."""
+    result Ciphertext (D, 2, L', N) with the scheme's form and scale."""
     ip = position_sum(ctx, idx_data, table_pt)
     return combine_ip(
-        ctx, rlk, ip, minus_data, mask_pt, mul_limbs=mul_limbs,
-        ship_limbs=ship_limbs,
+        ctx, rlk, ip, minus_data, mask_pt, leveled=leveled,
+        mul_limbs=mul_limbs, ship_limbs=ship_limbs,
     )
 
 
-def position_sum(ctx: BFVContext, idx_data, table_pt, p0: int | None = None) -> torch.Tensor:
+def position_sum(ctx: BGVContext, idx_data, table_pt, p0: int | None = None) -> torch.Tensor:
     """Per-(hash, depth) position-summed ct x pt products: (H, D, 2, L, N);
     with p0, over table positions [p0, p0 + idx_data.shape[1]), read in
     place."""
@@ -67,40 +71,67 @@ def position_sum(ctx: BFVContext, idx_data, table_pt, p0: int | None = None) -> 
 
 
 def combine_ip(
-    ctx: BFVContext,
+    ctx: BGVContext,
     rlk: RelinKey,
     ip: torch.Tensor,          # (H, D, 2, L, N) position sums
     minus_data: torch.Tensor,  # (2, L, N)
     mask_pt: torch.Tensor,     # (D, L, N)
+    leveled: bool = False,
     mul_limbs: int | None = None,
     ship_limbs: int | None = None,
 ) -> Ciphertext:
     """Add -elem (hash 0 takes the per-depth MASKED minus-element, the masks
-    being folded into hash 0's table), then multiply across hash functions
-    on the rescaled basis (HPS + relin on mul_limbs, result on ship_limbs)."""
+    being folded into hash 0's table), then multiply across hash functions:
+    on the rescaled BFV basis (mul_limbs < L; mul_limbs = 0 disables it),
+    flat on the full basis, or down the leveled BGV chain."""
     H = ip.shape[0]
     minus_masked = mont_mul(
         minus_data[None], mask_pt[:, None], ctx.p, ctx.pinv
     )  # (D, 2, L, N)
-    acc = Ciphertext(add_mod(ip[0], minus_masked, ctx.p), "bfv", 1)
-    if H == 1:
+    ip0 = add_mod(ip[0], minus_masked, ctx.p)
+    rest = [add_mod(ip[h], minus_data[None], ctx.p) for h in range(1, H)]
+    if mul_limbs and mul_limbs < ctx.L and H > 1:
+        assert ctx.default_form == "bfv", "mul_limbs is the BFV rescaled path"
+        acc = Ciphertext(ip0, "bfv", 1)
+        cur = ctx.L
+        for h in range(1, H):
+            acc = ctx.hps_mul_relin_rescaled(
+                acc,
+                Ciphertext(rest[h - 1], "bfv", 1),
+                rlk,
+                mul_limbs,
+                ship_limbs=ship_limbs if h == H - 1 else None,
+                a_limbs=cur,
+            )
+            cur = mul_limbs
         return acc
-    if not (mul_limbs and mul_limbs < ctx.L):
-        raise NotImplementedError(
-            "only the rescaled BFV pipeline (mul_limbs < L) is ported; the "
-            "full-basis and leveled cross-hash products are not"
-        )
-    cur = ctx.L
+    # intermediate ciphertexts carry the context's native form (bgv/bfv)
+    form = ctx.default_form
+    acc = Ciphertext(ip0, form, 1)
+    if not leveled or H == 1:
+        for h in range(1, H):
+            acc = ctx.ct_ct_mul_relin(acc, Ciphertext(rest[h - 1], form, 1), rlk)
+        return acc
+
+    assert form == "bgv", "leveled path is BGV-only"
+    # chain[lvl] works over L - lvl limbs; multiplication h runs at level h
+    # (both operands switched down first), the product is switched once
+    # more except after the last multiplication
+    chain = [ctx]
+    for _ in range(H - 1):
+        chain.append(chain[-1].drop_limb_context())
+
+    def switch_to(ct, dst_lvl: int) -> Ciphertext:
+        for lv in range(dst_lvl):
+            ct = chain[lv].mod_switch(ct)
+        return ct
+
+    acc = switch_to(acc, 1)
     for h in range(1, H):
-        acc = ctx.hps_mul_relin_rescaled(
-            acc,
-            Ciphertext(add_mod(ip[h], minus_data[None], ctx.p), "bfv", 1),
-            rlk,
-            mul_limbs,
-            ship_limbs=ship_limbs if h == H - 1 else None,
-            a_limbs=cur,
-        )
-        cur = mul_limbs
+        op = switch_to(Ciphertext(rest[h - 1], "bgv", 1), h)
+        acc = chain[h].ct_ct_mul_relin(acc, op, ctx.shrink_relin_key(rlk, chain[h].L))
+        if h < H - 1:
+            acc = chain[h].mod_switch(acc)
     return acc
 
 
@@ -115,27 +146,41 @@ class BatchedFHEPIE(nn.Module):
     position-major, (P, H, D, L, N), so that every slice of positions is one
     contiguous block (an asynchronous copy of a strided slice is neither
     asynchronous nor from pinned memory); ``table_pt`` is the (H, D, P, L, N)
-    view of it."""
+    view of it.
+
+    ``leveled=True`` (BGV, t < 2^31) runs the cross-hash chain with one limb
+    dropped per multiplication. ``mul_limbs`` (BFV): None takes the rescaled
+    basis from the noise model, 0 disables it (the flat full-basis product);
+    ``ship_limbs`` None likewise."""
 
     def __init__(
         self,
-        ctx: BFVContext,
+        ctx: BGVContext,
         hct: HierarchicalCuckooHashTable,
         rlk: RelinKey,
         mask_seed: int | None = None,
-        encode_slab: int = 2048,
+        leveled: bool = False,
+        mul_limbs: int | None = None,
+        ship_limbs: int | None = None,
         host_table: bool = False,
+        encode_slab: int = 2048,
     ):
         super().__init__()
         if hct.server_stash_size != 0:
             raise ValueError("batched FHE PIE does not support a stash")
         if not (hct.simple_multi_table and hct.cuckoo_multi_table):
             raise ValueError("batched FHE PIE does not support combined tables")
-        if ctx.default_form != "bfv":
-            raise NotImplementedError("only the BFV batched PIE is ported")
         self.ctx = ctx
         self.H = hct.n_cuckoo_hash_functions
-        self._setup_mul_limbs()
+        if leveled:
+            assert ctx.default_form == "bgv" and ctx.t < 2**31, (
+                "leveled PIE requires BGV with t < 2^31"
+            )
+            assert ctx.L - (self.H - 1) >= 2, "not enough limbs for the chain"
+            # the drop-limb chain's contexts exist before the first query
+            ctx.context_for_limbs(ctx.L - (self.H - 1))
+        self.leveled = leveled
+        self._setup_mul_limbs(mul_limbs, ship_limbs)
         self.D = hct.max_items_per_position
         self.P = hct.each_cuckoo_table_size
         self.batch_slots = hct.n_simple_tables * hct.each_simple_table_size
@@ -203,23 +248,26 @@ class BatchedFHEPIE(nn.Module):
     def rlk(self) -> RelinKey:
         return RelinKey(b_mont=self.rlk_b, a_mont=self.rlk_a)
 
-    def _setup_mul_limbs(self) -> None:
-        """The rescaled-mult basis from the noise model (fhe.params): the
-        cross-hash HPS mults + relin run on mul_limbs limbs and the result
-        ships on ship_limbs. Child contexts, converters and rescalers are
-        built here, before the first query."""
+    def _setup_mul_limbs(self, mul_limbs: int | None, ship_limbs: int | None) -> None:
+        """The rescaled-mult basis (BFV): None = from the noise model
+        (fhe.params), 0 = disabled. The cross-hash HPS mults + relin then run
+        on mul_limbs limbs and the result ships on ship_limbs. Child
+        contexts, converters and rescalers are built here, before the first
+        query. Any other case (BGV, H = 1, mul_limbs >= L) leaves both None:
+        the flat or leveled product."""
         ctx = self.ctx
         self.mul_limbs = self.ship_limbs = None
-        if self.H == 1:
+        if ctx.default_form != "bfv" or self.H == 1:
             return
-        mul_limbs = bfv_mul_limbs(ctx.t.bit_length(), ctx.L, self.H - 1, ring_dim=ctx.n)
-        if mul_limbs >= ctx.L:
-            raise NotImplementedError(
-                f"mul_limbs={mul_limbs} with L={ctx.L}: only the rescaled BFV "
-                "pipeline is ported"
-            )
+        if mul_limbs is None:
+            mul_limbs = bfv_mul_limbs(ctx.t.bit_length(), ctx.L, self.H - 1, ring_dim=ctx.n)
+        if not (mul_limbs and mul_limbs < ctx.L):
+            return
         self.mul_limbs = mul_limbs
-        self.ship_limbs = bfv_ship_limbs(ctx.t.bit_length(), mul_limbs, ring_dim=ctx.n)
+        self.ship_limbs = (
+            bfv_ship_limbs(ctx.t.bit_length(), mul_limbs, ring_dim=ctx.n)
+            if ship_limbs is None else ship_limbs
+        )
         mctx = ctx.context_for_limbs(self.mul_limbs)
         mctx.mulconv
         ctx._rescaler(self.mul_limbs)
@@ -230,15 +278,16 @@ class BatchedFHEPIE(nn.Module):
     def forward(self, idx: torch.Tensor, minus: torch.Tensor) -> Ciphertext:
         """idx: (H, P, 2, L, N); minus: (2, L, N) -> result (D, 2, L', N)."""
         if self.host_table:
-            return self._run_host_table(Ciphertext(idx, "bfv"), Ciphertext(minus, "bfv"))
+            form = self.ctx.default_form
+            return self._run_host_table(Ciphertext(idx, form), Ciphertext(minus, form))
         return batched_pie_forward(
             self.ctx, self.rlk, idx, minus, self.table_pt, self.mask_pt,
-            mul_limbs=self.mul_limbs, ship_limbs=self.ship_limbs,
+            leveled=self.leveled, mul_limbs=self.mul_limbs, ship_limbs=self.ship_limbs,
         )
 
     def _combine(self, ip: torch.Tensor, minus_data: torch.Tensor) -> Ciphertext:
         return combine_ip(
-            self.ctx, self.rlk, ip, minus_data, self.mask_pt,
+            self.ctx, self.rlk, ip, minus_data, self.mask_pt, leveled=self.leveled,
             mul_limbs=self.mul_limbs, ship_limbs=self.ship_limbs,
         )
 
@@ -339,7 +388,7 @@ class BatchedFHEClientOps:
     """Client-side batched-PIE operations: index-matrix construction and
     result extraction (reference: BatchedFHEPSIClient.cpp:107-193)."""
 
-    ctx: BFVContext
+    ctx: BGVContext
     client_table: CuckooHashTable
     n_simple_hf: int
     n_cuckoo_hf: int

@@ -6,11 +6,13 @@ index ciphertexts, result meta + result ciphertexts, all uint32 tensors), so
 a port party can talk to a JAX party. Each party computes on an explicit
 ``device``; "cuda" raises when no GPU is present. On a GPU the client
 decrypts on the device straight to the zero mask (``fhe.device_decrypt``, the
-JAX package's on-chip branch); on the CPU it decrypts on the host.
+JAX package's on-chip branch); on the CPU it decrypts on the host, and so
+does a ``--bgv`` client everywhere (the JAX package has no BGV device
+decrypt either). ``--bgv`` runs the leveled PIE when t fits the device's
+mod-t arithmetic (16-bit items) and the flat product otherwise.
 ``--streamChunks`` sends the index ciphertexts in chunks that the server
 position-sums as they arrive, and a packed table above 5 GB stays in host
-memory (``BatchedFHEPIE(host_table=True)``). Not ported, raising
-``NotImplementedError``: --bgv.
+memory (``BatchedFHEPIE(host_table=True)``).
 """
 
 from __future__ import annotations
@@ -41,6 +43,8 @@ from nested_hashing_psi_tpu_torch.fhe.device_decrypt import DeviceDecryptor
 from nested_hashing_psi_tpu_torch.fhe.params import (
     SchemeParams,
     bfv_batched_client_limbs,
+    default_num_limbs,
+    leveled_default,
     plaintext_modulus_for_bit_size,
     validate_wire_scheme_params,
 )
@@ -67,20 +71,30 @@ def _sync(device: torch.device) -> None:
 
 
 def _scheme_params(psi: PSIParams, ht: HashTableParams) -> SchemeParams:
-    if psi.bgv:
-        raise NotImplementedError("--bgv (BGV / leveled PIE) is not ported yet")
     t = plaintext_modulus_for_bit_size(psi.bit_size)
-    auto = bfv_batched_client_limbs(
-        t.bit_length(),
-        ht.each_cuckoo_table_size,
-        ht.n_cuckoo_hash_functions,
-        ring_dim=psi.ring_dim,
-    )
+    scheme = "bgv" if psi.bgv else "bfv"  # the reference's default is BFV
+    if scheme == "bfv":
+        auto = bfv_batched_client_limbs(
+            t.bit_length(),
+            ht.each_cuckoo_table_size,
+            ht.n_cuckoo_hash_functions,
+            ring_dim=psi.ring_dim,
+        )
+    else:
+        # the server builds its PIE leveled under the same predicate
+        auto = default_num_limbs(
+            t.bit_length(),
+            ht.n_cuckoo_hash_functions - 1,
+            ht.each_cuckoo_table_size,
+            scheme,
+            leveled=leveled_default(scheme, t, ht.n_cuckoo_hash_functions),
+            ring_dim=psi.ring_dim,
+        )
     sp = SchemeParams(
         ring_dim=psi.ring_dim,
         plaintext_modulus=t,
         num_limbs=psi.num_limbs or auto,
-        scheme="bfv",
+        scheme=scheme,
     )
     sp.validate_security()
     return sp
@@ -118,7 +132,8 @@ class BatchedFHEPSIClient(PSIClientBase):
         )
         sp = self.ctx.params
         self.channel.write_tensor(
-            np.array([sp.ring_dim, sp.plaintext_modulus, sp.num_limbs, 0], np.uint64)
+            np.array([sp.ring_dim, sp.plaintext_modulus, sp.num_limbs,
+                      1 if sp.scheme == "bgv" else 0], np.uint64)
         )
         self.channel.write_tensor(to_numpy(self.rlk.b_mont))
         self.channel.write_tensor(to_numpy(self.rlk.a_mont))
@@ -146,9 +161,10 @@ class BatchedFHEPSIClient(PSIClientBase):
 
     def _read_and_decrypt(self) -> np.ndarray:
         """Read the result frames and decrypt them to the per-slot zero mask
-        (..., D, batch), in the context of the result's limb count. On a GPU
-        the decrypt runs on the device (noise_bits only with --verbose,
-        which adds the host decrypt); on the CPU it is the host decrypt."""
+        (..., D, batch), in the context of the result's limb count. A BFV
+        result on a GPU is decrypted on the device (noise_bits only with
+        --verbose, which adds the host decrypt); a BGV result, or any on the
+        CPU, on the host."""
         meta = self.channel.read_tensor()
         form = "bgv" if int(meta[0]) else "bfv"
         result = ciphertext_from_numpy(
@@ -233,6 +249,7 @@ class BatchedFHEPSIServer(PSIServerBase):
         )
         self.pie = BatchedFHEPIE(
             ctx, self.server_table, self.rlk,
+            leveled=leveled_default(ctx.params.scheme, ctx.t, ht.n_cuckoo_hash_functions),
             host_table=table_bytes > HOST_TABLE_BYTES,
         )
         _sync(self.device)
@@ -264,7 +281,7 @@ class BatchedFHEPSIServer(PSIServerBase):
                 for c in range(n_chunks):
                     yield c * w, to_device_async(self.channel.read_tensor(), self.device)
 
-            result = self.pie.run_streamed(chunks(), Ciphertext(minus, "bfv"))
+            result = self.pie.run_streamed(chunks(), Ciphertext(minus, self.ctx.default_form))
         _sync(self.device)
         self.online_computation_us = (time.monotonic_ns() - begin) // 1000
         self.channel.write_tensor(
@@ -291,7 +308,10 @@ class BatchedFHEPSIServer(PSIServerBase):
         out = self.pie.run_many(idx_b, minus_b)
         _sync(self.device)
         self.online_computation_us = (time.monotonic_ns() - begin) // 1000
-        self.channel.write_tensor(np.array([0, 1], np.uint64))  # bfv, scale 1
+        # the JAX server's frame: the native form and scale 1, even where a
+        # leveled result carries prod q_l^-1 mod t (ROADMAP Queue 3)
+        is_bgv = 1 if self.ctx.default_form == "bgv" else 0
+        self.channel.write_tensor(np.array([is_bgv, 1], np.uint64))
         self.channel.write_tensor(to_numpy(out))
         if self.params.export_performance:
             self.export_measurements()

@@ -1,7 +1,8 @@
 """Protocol runners: in-process (threads + loopback channel) and TCP mains.
 
 Counterpart of ``nested_hashing_psi_tpu.protocol.runner`` for the ported
-protocol, BatchedFHE (``-F --batched``). Both parties compute on ``device``.
+protocols, BatchedFHE (``-F --batched``) and SimpleFHE (``-F``), each under
+BFV or ``--bgv``. Both parties compute on ``device``.
 The in-process loopback channel serializes every frame to bytes, as TCP
 does, so what crosses it is exactly the wire format.
 """
@@ -18,6 +19,10 @@ from nested_hashing_psi_tpu_torch.protocol.batched_fhe import (
     BatchedFHEPSIServer,
     resolve_device,
 )
+from nested_hashing_psi_tpu_torch.protocol.simple_fhe import (
+    SimpleFHEPSIClient,
+    SimpleFHEPSIServer,
+)
 
 
 def protocol_name(params: PSIParams) -> str:
@@ -30,7 +35,9 @@ def protocol_name(params: PSIParams) -> str:
 def make_protocol_pair(name: str):
     if name == "BatchedFHE":
         return BatchedFHEPSIClient, BatchedFHEPSIServer
-    if name in ("SimpleFHE", "SimpleElGamal", "PrecompElGamal"):
+    if name == "SimpleFHE":
+        return SimpleFHEPSIClient, SimpleFHEPSIServer
+    if name in ("SimpleElGamal", "PrecompElGamal"):
         raise NotImplementedError(f"protocol {name} is not ported yet")
     raise ValueError(f"unknown protocol {name}")
 

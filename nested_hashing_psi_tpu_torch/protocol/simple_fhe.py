@@ -1,0 +1,193 @@
+"""Simple (per-position) FHE PSI protocol (PyTorch).
+
+Counterpart of ``nested_hashing_psi_tpu.protocol.simple_fhe`` with the same
+phases and wire frames (scheme-params vector, Galois elements, the stacked
+Galois keys, index ciphertexts, result ciphertexts), so a port party can talk
+to a JAX party. Per client cuckoo position the client sends nCuckooHF index
+ciphertexts (one-hot inner-hash index || -elem); the server answers with
+nCuckooHF masked merged ciphertexts whose first maxPP slots hold the per-bin
+randomized differences, a zero slot marking a hit. All positions travel and
+batch as one dense tensor (``pie.simple_fhe.SimpleFHEPIE``).
+
+Each party computes on an explicit ``device``; "cuda" raises when no GPU is
+present. A BFV result on a GPU is decrypted on the device, straight to the
+zero mask (``fhe.device_decrypt``), in bounded chunks; a BGV result, or any
+on the CPU, on the host, in chunks.
+"""
+
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import torch
+
+from nested_hashing_psi_tpu_torch.config import HashTableParams, PSIParams
+from nested_hashing_psi_tpu_torch.convert import from_numpy, to_numpy
+from nested_hashing_psi_tpu_torch.fhe.bfv import make_context
+from nested_hashing_psi_tpu_torch.fhe.bgv import Ciphertext, RelinKey
+from nested_hashing_psi_tpu_torch.fhe.device_decrypt import DeviceDecryptor
+from nested_hashing_psi_tpu_torch.fhe.params import (
+    SchemeParams,
+    default_num_limbs,
+    plaintext_modulus_for_bit_size,
+    validate_wire_scheme_params,
+)
+from nested_hashing_psi_tpu_torch.hashing import (
+    CuckooHashTable,
+    HierarchicalCuckooHashTable,
+    TabulationHashing,
+)
+from nested_hashing_psi_tpu_torch.pie.simple_fhe import SimpleFHEClientOps, SimpleFHEPIE
+from nested_hashing_psi_tpu_torch.protocol.base import PSIClientBase, PSIServerBase
+from nested_hashing_psi_tpu_torch.protocol.batched_fhe import _sync, resolve_device
+from nested_hashing_psi_tpu_torch.protocol.channel import Channel
+
+PROTOCOL_NAME = "SimpleFHE"
+DECRYPT_CHUNK_BYTES = 1 << 29  # phase rows decrypted at a time
+
+
+def _scheme_params(psi: PSIParams, ht: HashTableParams) -> SchemeParams:
+    t = plaintext_modulus_for_bit_size(psi.bit_size)
+    scheme = "bgv" if psi.bgv else "bfv"
+    # no ct x ct; eval_sum models the rotation ladder's key-switch noise
+    limbs = psi.num_limbs or default_num_limbs(
+        t.bit_length(), 0, ht.each_cuckoo_table_size + 1, scheme,
+        eval_sum=True, ring_dim=psi.ring_dim,
+    )
+    sp = SchemeParams(
+        ring_dim=psi.ring_dim, plaintext_modulus=t, num_limbs=limbs, scheme=scheme
+    )
+    sp.validate_security()
+    return sp
+
+
+class SimpleFHEPSIClient(PSIClientBase):
+    def __init__(self, data, params: PSIParams, ht: HashTableParams,
+                 channel: Channel, device="cuda", **kw):
+        super().__init__(data, params, channel, PROTOCOL_NAME, **kw)
+        self.ht = ht
+        self.device = resolve_device(device)
+        self.decryptor: DeviceDecryptor | None = None
+
+    def run_setup_phase(self) -> None:
+        p, ht = self.params, self.ht
+        self.hasher = TabulationHashing(
+            p.hash_seed, ht.n_simple_hash_functions + ht.n_cuckoo_hash_functions
+        )
+        self.ctx = make_context(_scheme_params(p, ht), seed=None, device=self.device)
+        self.sk, self.pk = self.ctx.keygen()
+        els = self.ctx.sum_ladder_elements()
+        self.gks = self.ctx.galois_keygen(self.sk, els)
+        self.client_table = CuckooHashTable(
+            self.hasher,
+            each_table_size=ht.each_simple_table_size,
+            n_hash_functions=ht.n_simple_hash_functions,
+            starting_hash_id=0,
+            max_stash_size=0,
+            multi_table=ht.simple_multi_table,
+            max_items_per_position=1,
+            seed=p.item_seed ^ 0x51E,
+        )
+        sp = self.ctx.params
+        self.channel.write_tensor(
+            np.array([sp.ring_dim, sp.plaintext_modulus, sp.num_limbs,
+                      1 if sp.scheme == "bgv" else 0], np.uint64)
+        )
+        self.channel.write_tensor(np.array(els, np.int64))
+        self.channel.write_tensor(to_numpy(torch.stack([self.gks[k].b_mont for k in els])))
+        self.channel.write_tensor(to_numpy(torch.stack([self.gks[k].a_mont for k in els])))
+
+    def run_offline_phase(self) -> None:
+        self.client_table.insert_all(self.client_set)
+        self.client_ops = SimpleFHEClientOps(
+            self.ctx,
+            self.client_table,
+            self.ht.n_simple_hash_functions,
+            self.ht.n_cuckoo_hash_functions,
+            self.ht.each_cuckoo_table_size,
+            self.ht.max_items_per_position,
+        )
+        self.idx_ct = self.client_ops.encrypt_query(self.sk)
+        _sync(self.device)  # the offline phase owns this cost
+
+    def run_online_phase(self) -> None:
+        self.channel.write_tensor(to_numpy(self.idx_ct.data))
+        ctx, maxpp = self.ctx, self.ht.max_items_per_position
+        data = from_numpy(self.channel.read_tensor(), self.device)
+        n_pies = data.shape[0]
+        flat = data.reshape(-1, 2, ctx.L, ctx.n)
+        # decrypt in bounded chunks: the whole (nPies*H)-row stack's
+        # transients would sit beside the server's table on a shared card
+        chunk = max(1, DECRYPT_CHUNK_BYTES // (2 * ctx.L * ctx.n * 4))
+        shape = (n_pies, self.ht.n_cuckoo_hash_functions, maxpp)
+        if self.device.type == "cuda" and ctx.default_form == "bfv":
+            if self.decryptor is None:
+                self.decryptor = DeviceDecryptor(ctx)
+            parts = [
+                self.decryptor.zero_mask(flat[s : s + chunk], self.sk.s_mont, maxpp).cpu().numpy()
+                for s in range(0, flat.shape[0], chunk)
+            ]
+            self.noise_bits = None
+            self.intersection_calculated = self.client_ops.extract_intersection_mask(
+                np.concatenate(parts, axis=0).reshape(shape)
+            )
+            return
+        slot_parts, noise = [], 0.0
+        for s in range(0, flat.shape[0], chunk):
+            sl, nz = ctx.decrypt(Ciphertext(flat[s : s + chunk], ctx.default_form, 1),
+                                 self.sk, length=maxpp)
+            slot_parts.append(np.asarray(sl))
+            noise = max(noise, nz)
+        self.noise_bits = noise
+        self.intersection_calculated = self.client_ops.extract_intersection(
+            np.concatenate(slot_parts, axis=0).reshape(shape)
+        )
+
+
+class SimpleFHEPSIServer(PSIServerBase):
+    def __init__(self, data, params: PSIParams, ht: HashTableParams,
+                 channel: Channel, device="cuda", **kw):
+        super().__init__(data, params, channel, PROTOCOL_NAME, **kw)
+        self.ht = ht
+        self.device = resolve_device(device)
+
+    def run_setup_phase(self) -> None:
+        p, ht = self.params, self.ht
+        self.hasher = TabulationHashing(
+            p.hash_seed, ht.n_simple_hash_functions + ht.n_cuckoo_hash_functions
+        )
+        meta = self.channel.read_tensor()
+        if meta.shape != (4,):
+            raise ValueError(f"malformed scheme-params frame {meta.shape}")
+        ring_dim, t, limbs, is_bgv = (int(v) for v in meta)
+        # peer-supplied parameters are untrusted: bound them first
+        sp = validate_wire_scheme_params(ring_dim, t, limbs, "bgv" if is_bgv else "bfv")
+        self.ctx = make_context(sp, seed=None, device=self.device)
+        els = [int(k) for k in self.channel.read_tensor()]
+        b, a = self.channel.read_tensor(), self.channel.read_tensor()
+        want = (len(els), sp.num_limbs, sp.num_limbs, sp.ring_dim)
+        if b.shape != want or a.shape != want:
+            raise ValueError(f"Galois key frames {b.shape}/{a.shape}, expected {want}")
+        b, a = from_numpy(b, self.device), from_numpy(a, self.device)
+        self.gks = {k: RelinKey(b_mont=b[i], a_mont=a[i]) for i, k in enumerate(els)}
+        self.server_table = HierarchicalCuckooHashTable.from_params(
+            self.hasher, ht, seed=p.item_seed ^ 0x7A12
+        )
+
+    def run_offline_phase(self) -> None:
+        begin = time.monotonic_ns()
+        self.server_table.insert_all(self.server_set)
+        self.pie = SimpleFHEPIE(self.ctx, self.server_table, self.gks)
+        _sync(self.device)
+        self.offline_computation_us = (time.monotonic_ns() - begin) // 1000
+
+    def run_online_phase(self) -> None:
+        idx = Ciphertext(from_numpy(self.channel.read_tensor(), self.device), self.ctx.default_form)
+        begin = time.monotonic_ns()
+        result = self.pie.run(idx)
+        _sync(self.device)
+        self.online_computation_us = (time.monotonic_ns() - begin) // 1000
+        self.channel.write_tensor(to_numpy(result.data))
+        if self.params.export_performance:
+            self.export_measurements()

@@ -214,7 +214,22 @@ def test_port_client_query_decrypts_to_intersection(setup):
 
 
 def test_unported_paths_raise(setup):
-    tctx, tpie = setup["tctx"], setup["tpie"]
-    ip = torch.zeros((2, MAX_PP, 2, L, RING), dtype=torch.int32)
-    with pytest.raises(NotImplementedError):
-        t_pie.combine_ip(tctx, tpie.rlk, ip, ip[0, 0], tpie.mask_pt, mul_limbs=None)
+    """Every BFV product pipeline is ported: mul_limbs=0 (and None on a
+    direct call) takes the flat full-basis product, bit-equal to the JAX
+    package's; the leveled chain is BGV-only in both packages."""
+    jctx, tctx, tpie = setup["jctx"], setup["tctx"], setup["tpie"]
+    ip = np.random.default_rng(3).integers(0, 1 << 30, size=(2, MAX_PP, 2, L, RING), dtype=np.uint32)
+    tip = convert.from_numpy(ip, "cpu")
+    with pytest.raises(AssertionError, match="BGV-only"):
+        t_pie.combine_ip(tctx, tpie.rlk, tip, tip[0, 0], tpie.mask_pt, leveled=True)
+    with pytest.raises(AssertionError, match="leveled PIE requires BGV"):
+        t_pie.BatchedFHEPIE(tctx, setup["hct"], tpie.rlk, leveled=True)
+    with jax.enable_x64(True):
+        want = jax.jit(lambda i, m, k, rk: j_pie.combine_ip(jctx, rk, i, m, k, mul_limbs=0))(
+            ip, ip[0, 0], setup["jpie"].mask_pt, setup["jpie"].rlk)
+    for mul_limbs in (0, None):
+        got = t_pie.combine_ip(tctx, tpie.rlk, tip, tip[0, 0], tpie.mask_pt, mul_limbs=mul_limbs)
+        assert got.data.shape == (MAX_PP, 2, L, RING) and got.form == want.form == "bfv"
+        np.testing.assert_array_equal(convert.to_numpy(got.data), np.asarray(want.data))
+    flat = t_pie.BatchedFHEPIE(tctx, setup["hct"], tpie.rlk, mask_seed=99, mul_limbs=0)
+    assert flat.mul_limbs is None and torch.equal(flat.table_pt, tpie.table_pt)

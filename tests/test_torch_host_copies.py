@@ -1,5 +1,5 @@
-"""The port's host copies (primes, params, encoding) give the same results as
-the JAX package's originals, including the big-t encode path at
+"""The port's host copies (primes, params, encoding, galois) give the same
+results as the JAX package's originals, including the big-t encode path at
 t = 2^32 + 2^20 + 2^19 + 1 (the main path's 32-bit items)."""
 
 import numpy as np
@@ -11,6 +11,7 @@ from nested_hashing_psi_tpu.fhe import params as j_params
 from nested_hashing_psi_tpu.ops import primes as j_primes
 from nested_hashing_psi_tpu.ops import refmodel as j_ref
 from nested_hashing_psi_tpu_torch.fhe import encoding as t_enc
+from nested_hashing_psi_tpu_torch.fhe import galois as t_galois
 from nested_hashing_psi_tpu_torch.fhe import params as t_params
 from nested_hashing_psi_tpu_torch.ops import primes as t_primes
 
@@ -67,6 +68,28 @@ def test_refmodel_ntt_and_slot_order_equal(n):
     np.testing.assert_array_equal(t_enc.ntt_numpy(x, p, psi), j_ref.ntt_numpy(x, p, psi))
     np.testing.assert_array_equal(t_enc.intt_numpy(x, p, psi), j_ref.intt_numpy(x, p, psi))
     np.testing.assert_array_equal(t_enc.slot_to_ntt_pos(n), j_galois.slot_to_ntt_pos(n))
+
+
+@pytest.mark.parametrize("n", [16, 64, 1024])
+def test_galois_tables_equal(n):
+    """Every function of fhe/galois.py, the EvalSum ladder's elements among
+    the automorphisms."""
+    E_t, pos_t = t_galois.ntt_exponent_map(n)
+    E_j, pos_j = j_galois.ntt_exponent_map(n)
+    np.testing.assert_array_equal(E_t, E_j)
+    assert pos_t == pos_j
+    np.testing.assert_array_equal(t_galois.slot_exponents(n), j_galois.slot_exponents(n))
+    np.testing.assert_array_equal(t_galois.slot_to_ntt_pos(n), j_galois.slot_to_ntt_pos(n))
+    assert t_enc.slot_to_ntt_pos is t_galois.slot_to_ntt_pos
+    assert t_galois.conjugation_galois_element(n) == j_galois.conjugation_galois_element(n)
+    for r in (0, 1, 3, n // 4, n // 2 - 1, n):
+        k = t_galois.rotation_galois_element(n, r)
+        assert k == j_galois.rotation_galois_element(n, r)
+        np.testing.assert_array_equal(t_galois.automorphism_ntt_perm(n, k),
+                                      j_galois.automorphism_ntt_perm(n, k))
+    k = 2 * n - 1
+    np.testing.assert_array_equal(t_galois.automorphism_ntt_perm(n, k),
+                                  j_galois.automorphism_ntt_perm(n, k))
 
 
 @pytest.mark.parametrize("t", [T16, T32], ids=["t16", "t32"])

@@ -8,8 +8,9 @@ run them on a GPU machine with
 K1 (ops/ntt_cuda.py), K2 (ops/pie_kernels.py) and K3 (ops/ntt_mxu.py) must
 equal their plain versions bit for bit (integer residues: exact equality),
 and K3 must equal K1. The on-device decrypt must give the host decrypt's
-zero mask, and the streamed protocol and the host-resident table must
-verify on the card.
+zero mask, ``mod_switch`` and ``automorphism`` on the card must equal the
+port on the CPU, and the streamed protocol, the host-resident table,
+``--bgv`` and SimpleFHE must verify on the card.
 """
 
 import numpy as np
@@ -364,3 +365,88 @@ def test_protocol_on_cuda_small_ring(cuda):
     client, _, ok = run_in_process(psi, ht, device="cuda")
     assert ok and len(client.intersection_calculated) == 5
     assert min(ntt_cuda.launches.values()) > 0 and pie_kernels.launches == 1
+
+
+@pytest.mark.parametrize("L,t", [(9, T32), (6, 65537)], ids=["flat_bgv_L9", "leveled_L6"])
+def test_pie_kernel_matches_plain_bgv_geometry(cuda, L, t):
+    """K2 at the --bgv paths' limb counts: flat BGV at 32-bit items (L = 9)
+    and the leveled path at 16-bit items (L = 6), the primes avoiding t."""
+    H, D, P, N = 2, 12, 12, 16384
+    ps = ntt_primes(L, 31, 2 * N, avoid=(t,))
+    tb = NTTPlan(N, ps).tensors(cuda)
+    idx = _residues((H, P, 2, L, N), ps, seed=L).to(cuda)
+    pt = _residues((H, D, P, L, N), ps, seed=L + 1).to(cuda)
+    got = pie_kernels.indexed_inner_product(idx, pt, tb["p_u32"], tb["pinv_u32"])
+    torch.cuda.synchronize()
+    assert torch.equal(got, pie_kernels.indexed_inner_product_plain(idx, pt, tb["p"], tb["pinv"]))
+
+
+def _bgv_pair(cuda, n, L):
+    from nested_hashing_psi_tpu_torch.fhe.bgv import BGVContext
+    from nested_hashing_psi_tpu_torch.fhe.params import SchemeParams
+
+    sp = SchemeParams(ring_dim=n, plaintext_modulus=65537, num_limbs=L, scheme="bgv")
+    return BGVContext(sp, seed=1, device=cuda), BGVContext(sp, seed=1, device="cpu")
+
+
+@pytest.mark.parametrize("n,L", [(1024, 3), (16384, 6)])
+def test_mod_switch_on_cuda_matches_cpu(cuda, n, L):
+    from nested_hashing_psi_tpu_torch.fhe.bgv import Ciphertext
+
+    gpu, cpu = _bgv_pair(cuda, n, L)
+    data = _residues((3, 2, L, n), cpu.q_primes, seed=n + L)
+    got = gpu.mod_switch(Ciphertext(data.to(cuda), "bgv", 1))
+    want = cpu.mod_switch(Ciphertext(data, "bgv", 1))
+    torch.cuda.synchronize()
+    assert got.scale == want.scale and torch.equal(got.data.cpu(), want.data)
+
+
+def test_automorphism_on_cuda_matches_cpu(cuda):
+    """Every element of the EvalSum ladder at n = 1024, on the same key."""
+    from nested_hashing_psi_tpu_torch.fhe.bgv import Ciphertext, RelinKey
+
+    n, L = 1024, 3
+    gpu, cpu = _bgv_pair(cuda, n, L)
+    data = _residues((4, 2, L, n), cpu.q_primes, seed=9)
+    for i, k in enumerate(cpu.sum_ladder_elements()):
+        kb = _residues((L, L, n), cpu.q_primes, seed=100 + i)
+        ka = _residues((L, L, n), cpu.q_primes, seed=200 + i)
+        got = gpu.automorphism(Ciphertext(data.to(cuda)), k, RelinKey(kb.to(cuda), ka.to(cuda)))
+        want = cpu.automorphism(Ciphertext(data), k, RelinKey(kb, ka))
+        torch.cuda.synchronize()
+        assert torch.equal(got.data.cpu(), want.data), k
+
+
+@pytest.mark.parametrize("bits", [16, 32], ids=["leveled", "flat"])
+def test_bgv_protocol_on_cuda_small_ring(cuda, bits):
+    """--bgv on the card: leveled at 16-bit items, flat at 32-bit; K1 and K2
+    launched, the client decrypts on the host, and the run verifies."""
+    from nested_hashing_psi_tpu_torch.protocol.runner import run_in_process
+
+    psi, ht = _small_protocol(bgv=True, bit_size=bits, num_limbs=None)
+    ntt_cuda.reset_launches()
+    pie_kernels.reset_launches()
+    client, server, ok = run_in_process(psi, ht, device="cuda")
+    assert ok and len(client.intersection_calculated) == 5
+    assert server.pie.leveled == (bits == 16)
+    assert min(ntt_cuda.launches.values()) > 0 and pie_kernels.launches == 1
+    assert client.noise_bits is not None and not client._decryptors
+
+
+@pytest.mark.parametrize("bgv", [False, True], ids=["bfv", "bgv"])
+def test_simple_fhe_protocol_on_cuda_small_ring(cuda, bgv):
+    """SimpleFHE on the card: K1 launched (the Galois key switches); a BFV
+    client decrypts on the device, a BGV client on the host."""
+    from nested_hashing_psi_tpu_torch.config import HashTableParams, PSIParams
+    from nested_hashing_psi_tpu_torch.protocol.runner import run_in_process
+
+    psi = PSIParams(server_set_size=200, client_set_size=8, intersection_set_size=4,
+                    bit_size=32, fhe=True, batched=False, bgv=bgv, ring_dim=64)
+    ht = HashTableParams(each_simple_table_size=16, each_cuckoo_table_size=10,
+                         n_simple_hash_functions=2, n_cuckoo_hash_functions=2,
+                         max_items_per_position=6)
+    ntt_cuda.reset_launches()
+    client, _, ok = run_in_process(psi, ht, device="cuda")
+    assert ok and len(client.intersection_calculated) == 4
+    assert min(ntt_cuda.launches.values()) > 0
+    assert (client.decryptor is None) == bgv

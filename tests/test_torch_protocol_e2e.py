@@ -19,9 +19,11 @@ import torch
 from nested_hashing_psi_tpu.config import HashTableParams, PSIParams
 from nested_hashing_psi_tpu.data.input import RandomDataInput
 from nested_hashing_psi_tpu.protocol import batched_fhe as j_proto
+from nested_hashing_psi_tpu.protocol import simple_fhe as j_simple
 from nested_hashing_psi_tpu.protocol.channel import LoopbackChannel
 from nested_hashing_psi_tpu_torch import cli
 from nested_hashing_psi_tpu_torch.protocol import batched_fhe as t_proto
+from nested_hashing_psi_tpu_torch.protocol import simple_fhe as t_simple
 from nested_hashing_psi_tpu_torch.protocol.runner import run_in_process
 
 torch.set_num_threads(1)
@@ -159,18 +161,77 @@ def test_mixed_jax_and_port(capsys, direction, queries):
     assert len(client.intersection_calculated) == 5
 
 
+# --bgv on the batched protocol: leveled at 16-bit items (Q = 1, Q = 2 and
+# a streamed upload), flat at 32-bit; SimpleFHE (-F without --batched)
+# under BFV and BGV. The limb counts come from the packages' own rules.
+BGV_AND_SIMPLE = {
+    "bgv16_leveled": dict(bgv=True),
+    "bgv16_leveled_q2": dict(bgv=True, num_queries=2),
+    "bgv16_leveled_stream2": dict(bgv=True, stream_chunks=2),
+    "bgv32_flat": dict(bgv=True, bit_size=32),
+    "simple_bfv": dict(batched=False),
+    "simple_bgv": dict(batched=False, bgv=True),
+}
+SIMPLE_FHE_SIZES = dict(ring_dim=64, server_set_size=200, client_set_size=8,
+                        intersection_set_size=4)
+
+
+def _case(name):
+    psi = small_params(num_limbs=None, **BGV_AND_SIMPLE[name])
+    if psi.batched:
+        return psi, small_ht()
+    return (dataclasses.replace(psi, **SIMPLE_FHE_SIZES),
+            small_ht(each_simple_table_size=16, each_cuckoo_table_size=10,
+                     max_items_per_position=6))
+
+
+@pytest.mark.parametrize("case", sorted(BGV_AND_SIMPLE))
+def test_port_bgv_and_simple_fhe_run_in_process(capsys, case):
+    psi, ht = _case(case)
+    client, server, ok = run_in_process(psi, ht, device="cpu")
+    assert ok and "Set matches!" in capsys.readouterr().out
+    assert len(client.intersection_calculated) == psi.intersection_set_size
+    assert server.ctx.default_form == ("bgv" if psi.bgv else "bfv")
+    if psi.batched:
+        # leveled exactly at 16-bit items: the result ships L - (H-1) limbs
+        assert server.pie.leveled == (psi.bit_size == 16)
+        shipped = server.ctx.L - (1 if server.pie.leveled else 0)
+        assert client.noise_bits < 31 * shipped - 10
+
+
+def _role(module, role):
+    """The module's PSIClient or PSIServer class."""
+    return next(getattr(module, n) for n in dir(module) if n.endswith(f"PSI{role}"))
+
+
+@pytest.mark.parametrize("case", sorted(BGV_AND_SIMPLE))
+@pytest.mark.parametrize("direction", ["jax_client_port_server", "port_client_jax_server"])
+def test_mixed_jax_and_port_bgv_and_simple_fhe(capsys, direction, case):
+    psi, ht = _case(case)
+    jp, tp = (j_proto, t_proto) if psi.batched else (j_simple, t_simple)
+    cpu = {"device": "cpu"}
+    if direction == "jax_client_port_server":
+        pair = (_role(jp, "Client"), _role(tp, "Server"), {}, cpu)
+    else:
+        pair = (_role(tp, "Client"), _role(jp, "Server"), cpu, {})
+    client, _, ok = _mixed(*pair[:2], psi, ht, *pair[2:])
+    assert ok and "Set matches!" in capsys.readouterr().out
+    assert len(client.intersection_calculated) == psi.intersection_set_size
+
+
 def test_port_slice_runs_without_jax():
-    """A fresh interpreter imports the port, runs its small CPU slice, and
-    never loads jax."""
+    """A fresh interpreter imports the port, runs its small CPU slice
+    (BatchedFHE under BFV and --bgv, SimpleFHE), and never loads jax."""
+    runs = [(small_params(), small_ht()), _case("bgv16_leveled"), _case("simple_bfv")]
     code = (
         "import sys\n"
         "from nested_hashing_psi_tpu_torch.config import HashTableParams, PSIParams\n"
         "from nested_hashing_psi_tpu_torch.protocol.runner import run_in_process\n"
         "import nested_hashing_psi_tpu_torch.cli, nested_hashing_psi_tpu_torch.convert\n"
-        f"psi = PSIParams(**{dataclasses.asdict(small_params())!r})\n"
-        f"ht = HashTableParams(**{dataclasses.asdict(small_ht())!r})\n"
-        "_, _, ok = run_in_process(psi, ht, device='cpu')\n"
-        "assert ok\n"
+        f"runs = {[(dataclasses.asdict(p), dataclasses.asdict(h)) for p, h in runs]!r}\n"
+        "for psi, ht in runs:\n"
+        "    _, _, ok = run_in_process(PSIParams(**psi), HashTableParams(**ht), device='cpu')\n"
+        "    assert ok\n"
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n"
         "assert 'nested_hashing_psi_tpu' not in sys.modules\n"
         "print('NO_JAX_OK')\n"
@@ -178,7 +239,7 @@ def test_port_slice_runs_without_jax():
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                          text=True, timeout=300)
     assert res.returncode == 0, res.stderr[-3000:]
-    assert "Set matches!" in res.stdout and "NO_JAX_OK" in res.stdout
+    assert res.stdout.count("Set matches!") == len(runs) and "NO_JAX_OK" in res.stdout
 
 
 def test_cuda_device_without_gpu_raises():
@@ -192,9 +253,10 @@ def test_cuda_device_without_gpu_raises():
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError):
-        run_in_process(small_params(bgv=True), small_ht(), device="cpu")
-    with pytest.raises(NotImplementedError):
+    """SimpleElGamal and PrecompElGamal (no -F) are not ported."""
+    with pytest.raises(NotImplementedError, match="PrecompElGamal"):
+        run_in_process(small_params(fhe=False, precomp=True), small_ht(), device="cpu")
+    with pytest.raises(NotImplementedError, match="SimpleElGamal"):
         run_in_process(small_params(fhe=False), small_ht(), device="cpu")
 
 
