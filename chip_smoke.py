@@ -18,7 +18,18 @@
    without them. Then K2 at flat --bgv's L = 9, K1 at the BGV paths' shapes
    (the full-basis relin decompose at L = 9, the leveled chain's switches
    and relin at 6 and 5 limbs, the SimpleFHE Galois key switches), and
-   ``mod_switch`` on the card against the port on the CPU (bit-equal);
+   ``mod_switch`` on the card against the port on the CPU (bit-equal).
+   The [sass] step also counts the three probes' instructions (A1 per
+   application of each op mix, by pipe, failing if a chain was folded:
+   fewer than one application can take; A2's and A3's per butterfly;
+   LDS/STS in A3's moves, failing without them). The [probe] phase drives
+   the probe path, the three probes' ``main`` (benchmarks/ of the port) at
+   their full shapes, with their launch counts set to 0 just before and
+   read just after: A1 the uint32 op mixes at (64, 128, 128), K = 64, then
+   at K = 2^15 for the rates; A2 the lazy butterfly forms and A3 the NTT
+   anatomy at (512, 6, 16384), each beside K1 on the same input. Each
+   ``main`` holds every variant, and K1, against its plain version on the
+   card, bit-exact (fmul: NaNs as one class), and raises otherwise;
 2. drives the port's main path through its user entry points
    (``cli.parse_args`` + ``protocol.runner.run_in_process``): BatchedFHE
    with BFV at the 2^20-server x 2048-client geometry, ring 16384, three
@@ -227,8 +238,8 @@ def ptxas_summary(report: str) -> str:
     for line in report.splitlines():
         if "Compiling entry function" in line:
             name = line.split("'")[1] if "'" in line else line
-            fam = next((f for f in ("ntt_fwd", "ntt_inv", "ntt_mxu", "pie_ip") if f in name),
-                       "other")
+            fam = next((f for f in ("ntt_fwd", "ntt_inv", "ntt_mxu", "pie_ip", "vpu_ops",
+                                    "ntt_lazy", "ntt_anatomy") if f in name), "other")
         elif fam and "Used" in line and "registers" in line:
             n = int(line.split("Used")[1].split("registers")[0])
             regs[fam] = max(regs.get(fam, 0), n)
@@ -404,6 +415,11 @@ def main() -> None:
         import torch
 
         from nested_hashing_psi_tpu_torch import cli
+        from nested_hashing_psi_tpu_torch.benchmarks import (
+            bench_ntt_anatomy,
+            bench_ntt_lazy_probe,
+            bench_vpu_ops,
+        )
         from nested_hashing_psi_tpu_torch.fhe.bgv import BGVContext, Ciphertext
         from nested_hashing_psi_tpu_torch.fhe.device_decrypt import DeviceDecryptor
         from nested_hashing_psi_tpu_torch.fhe.params import SchemeParams, bfv_mul_limbs
@@ -411,6 +427,7 @@ def main() -> None:
         from nested_hashing_psi_tpu_torch.ops.basis import BFVMulConverter
         from nested_hashing_psi_tpu_torch.ops.ntt import NTTPlan, intt, ntt
         from nested_hashing_psi_tpu_torch.ops.primes import ntt_primes
+        from nested_hashing_psi_tpu_torch.ops.split_plan import SplitNTTPlan
         from nested_hashing_psi_tpu_torch.pie.batched_fhe import BatchedFHEPIE
         from nested_hashing_psi_tpu_torch.pie.simple_fhe import SimpleFHEPIE
         from nested_hashing_psi_tpu_torch.protocol.runner import run_in_process
@@ -444,6 +461,31 @@ def main() -> None:
           "warpgroups take 232 by setmaxnreg)", flush=True)
     if k3_sass["IGMMA"] == 0 or k3_sass["UBLKCP"] + k3_sass["UTMALDG"] == 0:
         fail(f"K3's kernels lack wgmma or bulk-copy instructions: {k3_sass}")
+    vpu_sass = {m: bench_vpu_ops.sass_per_application(m) for m in bench_vpu_ops.MIXES}
+    print("[sass] A1 per application, FMA pipe + ALU (loop body of UNROLL x ELEMS "
+          "applications): " + "; ".join(f"{m} {s['fma']:.2f} + {s['alu']:.2f}"
+                                        for m, s in vpu_sass.items()), flush=True)
+    # A chain folded by the compiler (64 adds into one multiply-add, two
+    # multiplies by c into one by c^2) leaves fewer instructions per
+    # application than one application can take (bench_vpu_ops.MIN_ARITH).
+    folded = {m: (s["arith"], bench_vpu_ops.MIN_ARITH[m]) for m, s in vpu_sass.items()
+              if s["arith"] < bench_vpu_ops.MIN_ARITH[m]}
+    if folded:
+        fail(f"A1 chains folded (instructions per application, floor): {folded}")
+    probe_plan = SplitNTTPlan(16384, ntt_primes(6, 31, 2 * 16384))
+    probe_sass = {v: bench_ntt_lazy_probe.sass_per_butterfly("ntt_lazy_kernel", probe_plan, i)
+                  for i, v in enumerate(bench_ntt_lazy_probe.VARIANTS)}
+    probe_sass["stages"] = bench_ntt_lazy_probe.sass_per_butterfly(
+        "ntt_anatomy_kernel", probe_plan, 0)
+    probe_sass["moves"] = bench_ntt_anatomy.moves_sass(probe_plan)
+    moves_ops = probe_sass.pop("moves")["opcodes"]
+    print("[sass] A2 and A3 at n = 16384, per butterfly, FMA pipe + ALU + memory: "
+          + "; ".join(f"{v} {s['fma']:.2f} + {s['alu']:.2f} + {s['memory']:.2f}"
+                      for v, s in probe_sass.items())
+          + f"; A3 moves, its row loop (static): LDS {moves_ops.get('LDS', 0):.0f}, STS "
+          f"{moves_ops.get('STS', 0):.0f}", flush=True)
+    if not (moves_ops.get("LDS") and moves_ops.get("STS")):
+        fail("A3's moves kernel has no LDS/STS: it does not move the data through shared memory")
 
     # ---- kernels vs plain at the main path's shapes ---------------------
     T = (1 << 32) + (1 << 20) + (1 << 19) + 1
@@ -640,6 +682,27 @@ def main() -> None:
     del k3
     torch.cuda.empty_cache()
 
+    # ---- the probe path (A1-A3): each probe's main at its full shape -----
+    # (every variant, and K1 on the probes' input, held against its plain
+    # version on the card; any mismatch raises)
+    bench_vpu_ops.reset_launches()
+    bench_ntt_lazy_probe.reset_launches()
+    bench_ntt_anatomy.reset_launches()
+    probe_runs = {"vpu": bench_vpu_ops.main([]), "lazy": bench_ntt_lazy_probe.main([]),
+                  "anatomy": bench_ntt_anatomy.main([])}
+    probe_launches = {"probe_vpu_ops": bench_vpu_ops.launches,
+                      "probe_ntt_lazy": bench_ntt_lazy_probe.launches,
+                      "probe_ntt_anatomy": bench_ntt_anatomy.launches}
+    print(f"[probe] the probe path's launches {probe_launches}", flush=True)
+    if min(probe_launches.values()) <= 0:
+        fail(f"the probe path did not launch every probe kernel: {probe_launches}")
+    anat = probe_runs["anatomy"]
+    print(f"[probe] A3 at (512, 6, 16384): stages {anat['stages']['ms']:.4f} ms, moves "
+          f"{anat['moves']['ms']:.4f} ms, full (K1) {anat['k1_ms']:.4f} ms; stages / full "
+          f"{anat['stages']['ms'] / anat['k1_ms']:.3f}, moves / full "
+          f"{anat['moves']['ms'] / anat['k1_ms']:.3f}", flush=True)
+    torch.cuda.empty_cache()
+
     # ---- the main path: three protocol runs ----------------------------
     launches, runs = {"ntt_fwd": 0, "ntt_inv": 0, "pie_ip": 0}, {}
 
@@ -823,6 +886,55 @@ def main() -> None:
               "ntt_mxu_inv_q", k3_launches["ntt_mxu_inv"], launches_from=k3_note,
               k1_ms=results["ntt_mxu_inv_q"][3], int8_products_ms=results["ntt_mxu_inv_q"][4]),
     ]
+    vpu_run = probe_runs["vpu"]
+    # the 11 K = 64 launches: the larger of their summed bytes and operations
+    elems = int(np.prod(bench_vpu_ops.SHAPE))
+    t_ops = sum(vpu_sass[m]["arith"] for m in vpu_run) * elems * bench_vpu_ops.K / INT32_OPS_S * 1e3
+    t_bytes = len(vpu_run) * 8 * elems / HBM_BYTES_S * 1e3
+    vpu_extra = {}
+    for m, r in vpu_run.items():
+        vpu_extra.update({
+            f"{m}_k64_ms": r["ms"], f"{m}_rate_k": r["rate_k"], f"{m}_rate_ms": r["rate_ms"],
+            f"{m}_rate_bound_ms": r["bound_ms"], f"{m}_rate_bound_by": r["bound_by"],
+            f"{m}_sass_fma_per_app": vpu_sass[m]["fma"],
+            f"{m}_sass_alu_per_app": vpu_sass[m]["alu"],
+            f"{m}_T_instructions_s": r["apps_per_s"] * vpu_sass[m]["arith"] / 1e12})
+    kernels.append({
+        "name": "probe_vpu_ops", "route": "cuda", "source": f"{csrc}/probe_vpu_ops.cu",
+        "replaces": "benchmarks/bench_vpu_ops.py:101", "launches": probe_launches["probe_vpu_ops"],
+        "max_abs_err": max(r["max_abs_err"] for r in vpu_run.values()),
+        "ms": sum(r["ms"] for r in vpu_run.values()),
+        "plain_ms": sum(r["plain_ms"] for r in vpu_run.values()), "bound_ms": max(t_ops, t_bytes),
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes", "library_ms": None,
+        "measured_as": "the 11 mixes at (64, 128, 128), K = 64, one launch each, summed",
+        **vpu_extra})
+
+    def probe_entry(name, source, replaces, main_v, others, run, **extra):
+        r = run[main_v]
+        fields = {}
+        for v in others:
+            fields.update({f"{v}_{k}": run[v][k]
+                           for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")})
+        for v in (main_v, *others):
+            if v != "moves":  # moves has no butterflies
+                fields[f"{v}_sass_arith_per_butterfly"] = run[v]["sass"]["arith"]
+            fields[f"{v}_limb_transforms_s"] = run[v]["transforms_per_s"]
+        return {"name": name, "route": "cuda", "source": f"{csrc}/{source}",
+                "replaces": replaces, "launches": probe_launches[name],
+                "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+                "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None,
+                "variant": main_v, **fields, "k1_max_abs_err": run["k1_max_abs_err"],
+                "k1_ms": run["k1_ms"], "k1_limb_transforms_s": run["k1_transforms_per_s"], **extra}
+
+    kernels.append(probe_entry("probe_ntt_lazy", "probe_ntt_lazy.cu",
+                               "benchmarks/bench_ntt_lazy_probe.py:142", "exact",
+                               ("lazy", "lazy_ps"), probe_runs["lazy"]))
+    kernels.append(probe_entry("probe_ntt_anatomy", "probe_ntt_anatomy.cu",
+                               "benchmarks/bench_ntt_anatomy.py:100", "stages", ("moves",),
+                               anat, moves_sass_lds_static=moves_ops.get("LDS", 0),
+                               moves_sass_sts_static=moves_ops.get("STS", 0),
+                               stages_over_full=anat["stages"]["ms"] / anat["k1_ms"],
+                               moves_over_full=anat["moves"]["ms"] / anat["k1_ms"]))
     print(smi_line)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -42,6 +42,12 @@ _SIGNATURES = {
     # (x, y, tmp, ga, gb, tw, rc, primes, pinvs, rows, L, m1, m2, inverse,
     #  launched*, stream)
     "nhpsi_ntt_mxu": [_P] * 9 + [_I] * 5 + [ctypes.POINTER(_I), _P],
+    # the probes under benchmarks/: (x, y, n, mix, k, stream)
+    "nhpsi_probe_vpu_ops": [_P, _P, _I, _I, _I, _P],
+    # (x, y, sa, sb, primes, B, L, m, variant, stream)
+    "nhpsi_probe_ntt_lazy": [_P] * 5 + [_I] * 4 + [_P],
+    # (x, y, sa, sb, tw, primes, B, L, m, variant, stream)
+    "nhpsi_probe_ntt_anatomy": [_P] * 6 + [_I] * 4 + [_P],
 }
 
 

@@ -55,20 +55,26 @@ def _default_data(params: PSIParams) -> RandomDataInput:
 def run_in_process(
     params: PSIParams,
     ht: HashTableParams,
+    data_factory=None,
+    protocol: str | None = None,
     export_dir: str = ".",
     device="cuda",
 ):
     """Run client+server in two threads over a loopback channel.
 
-    Returns (client, server, ok): the client instance (with intersection +
-    measurements), the server instance, and the client's verification.
+    ``data_factory()`` makes each party's data input (default: the seeded
+    RandomDataInput of ``params``); ``protocol`` forces the pair by name
+    instead of the flags' choice. Returns (client, server, ok): the client
+    instance (with intersection + measurements), the server instance, and
+    the client's verification.
     """
-    client_cls, server_cls = make_protocol_pair(protocol_name(params))
+    client_cls, server_cls = make_protocol_pair(protocol or protocol_name(params))
+    factory = data_factory or (lambda: _default_data(params))
     device = resolve_device(device)
     ch_client, ch_server = LoopbackChannel.pair()
-    client = client_cls(_default_data(params), params, ht, ch_client,
+    client = client_cls(factory(), params, ht, ch_client,
                         device=device, export_dir=export_dir)
-    server = server_cls(_default_data(params), params, ht, ch_server,
+    server = server_cls(factory(), params, ht, ch_server,
                         device=device, export_dir=export_dir)
 
     errors: list[BaseException] = []

@@ -294,6 +294,12 @@ _NO_JAX_SCRIPT = textwrap.dedent("""
         hct = HierarchicalCuckooHashTable.from_params(TabulationHashing(321, 4), ht, seed=5)
         hct.insert_all(items, n_workers=2)
         assert (hct.table != 0).any(axis=-1).sum() == 2 * len(items)
+        from nested_hashing_psi_tpu_torch.benchmarks import (
+            bench_ntt_anatomy, bench_ntt_lazy_probe, bench_vpu_ops)
+        bench_vpu_ops.main(["--device", "cpu", "--shape", "1", "8", "128", "--iters", "1"])
+        for probe in (bench_ntt_lazy_probe, bench_ntt_anatomy):
+            probe.main(["--device", "cpu", "--n", "1024", "--limbs", "1", "--batch", "2",
+                        "--iters", "1"])
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith(("jax.", "nested_hashing_psi_tpu."))
                      or m == "nested_hashing_psi_tpu")
@@ -306,8 +312,8 @@ _NO_JAX_SCRIPT = textwrap.dedent("""
 
 
 def test_port_imports_nothing_of_jax_or_the_jax_package(tmp_path):
-    """Every port module imported, a whole protocol run and a two-worker
-    parallel table build, in a fresh interpreter where the JAX package
+    """Every port module imported, a whole protocol run, a two-worker
+    parallel table build and the three probes' CPU runs, in a fresh interpreter where the JAX package
     cannot be imported (a stub that raises shadows it, for the spawned
     workers too); afterwards neither it nor jax is in sys.modules."""
     stub = tmp_path / "stub" / "nested_hashing_psi_tpu"
@@ -321,3 +327,5 @@ def test_port_imports_nothing_of_jax_or_the_jax_package(tmp_path):
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr[-3000:]
     assert "Set matches!" in res.stdout and "PORT_STANDS_ALONE" in res.stdout
+    assert res.stdout.count("G applications/s") == 11
+    assert "[ntt_lazy]" in res.stdout and "[ntt_anatomy]" in res.stdout

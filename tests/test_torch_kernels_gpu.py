@@ -450,3 +450,99 @@ def test_simple_fhe_protocol_on_cuda_small_ring(cuda, bgv):
     assert ok and len(client.intersection_calculated) == 4
     assert min(ntt_cuda.launches.values()) > 0
     assert (client.decryptor is None) == bgv
+
+
+# ---- the probes under benchmarks/ (A1-A3) ---------------------------------
+
+from nested_hashing_psi_tpu_torch.benchmarks import bench_ntt_anatomy  # noqa: E402
+from nested_hashing_psi_tpu_torch.benchmarks import bench_ntt_lazy_probe  # noqa: E402
+from nested_hashing_psi_tpu_torch.benchmarks import bench_vpu_ops  # noqa: E402
+from nested_hashing_psi_tpu_torch.ops.split_plan import SplitNTTPlan  # noqa: E402
+
+
+def _u32_patterns(shape, seed):
+    x = np.random.default_rng(seed).integers(0, 1 << 32, size=shape, dtype=np.uint64)
+    return torch.from_numpy(x.astype(np.uint32).view(np.int32))
+
+
+@pytest.mark.parametrize("shape", [(8, 8, 128), (3, 5, 7)], ids=["tile", "odd"])
+@pytest.mark.parametrize("mix", bench_vpu_ops.MIXES)
+def test_vpu_ops_kernel_matches_plain(cuda, mix, shape):
+    """K = 64, the JAX probe's function; bit-exact (fmul: NaNs as one class)."""
+    x = _u32_patterns(shape, seed=11).to(cuda)
+    got = bench_vpu_ops.vpu_ops(x, mix)
+    torch.cuda.synchronize()
+    assert bench_vpu_ops.same(got, bench_vpu_ops.vpu_ops_plain(x, mix), mix) == 0
+
+
+@pytest.mark.parametrize("mix", ["add", "addmod", "shoup", "mont", "fmul", "mul4_ilp"])
+def test_vpu_ops_kernel_large_k(cuda, mix):
+    """A long chain (not a multiple of the kernel's unroll) on a small
+    tensor, and K = 0 (the input unchanged)."""
+    x = _u32_patterns((2, 8, 128), seed=12).to(cuda)
+    got = bench_vpu_ops.vpu_ops(x, mix, 2051)
+    torch.cuda.synchronize()
+    assert bench_vpu_ops.same(got, bench_vpu_ops.vpu_ops_plain(x, mix, 2051), mix) == 0
+    assert torch.equal(bench_vpu_ops.vpu_ops(x, mix, 0), x)
+
+
+def _probe_plan_and_input(n, rows, seed, cuda, L=2):
+    ps = ntt_primes(L, 31, 2 * n)
+    plan = SplitNTTPlan(n, ps)
+    x = np.random.default_rng(seed).integers(0, min(ps), size=(rows, L, n), dtype=np.int64)
+    return plan, torch.from_numpy(x.astype(np.int32)).to(cuda)
+
+
+@pytest.mark.parametrize("rows", [5, 9])
+@pytest.mark.parametrize("n", [1 << 10, 1 << 12])
+@pytest.mark.parametrize("which", bench_ntt_lazy_probe.VARIANTS)
+def test_lazy_probe_kernel_matches_plain(cuda, which, n, rows):
+    """Rows not a multiple of the kernel's rows per block."""
+    plan, x = _probe_plan_and_input(n, rows, seed=n + rows, cuda=cuda)
+    got = bench_ntt_lazy_probe.lazy_probe(x, plan, which)
+    torch.cuda.synchronize()
+    assert torch.equal(got, bench_ntt_lazy_probe.lazy_probe_plain(x, plan, which))
+
+
+@pytest.mark.parametrize("rows", [5, 9])
+@pytest.mark.parametrize("n", [1 << 10, 1 << 12])
+@pytest.mark.parametrize("which", bench_ntt_anatomy.VARIANTS)
+def test_anatomy_probe_kernel_matches_plain(cuda, which, n, rows):
+    plan, x = _probe_plan_and_input(n, rows, seed=n + rows + 1, cuda=cuda, L=3)
+    got = bench_ntt_anatomy.anatomy_probe(x, plan, which)
+    torch.cuda.synchronize()
+    assert torch.equal(got, bench_ntt_anatomy.anatomy_probe_plain(x, plan, which))
+
+
+def test_probe_launch_counts_and_refusals(cuda):
+    x = _u32_patterns((2, 8, 128), seed=13).to(cuda)
+    bench_vpu_ops.reset_launches()
+    for mix in bench_vpu_ops.MIXES:
+        bench_vpu_ops.vpu_ops(x, mix)
+    assert bench_vpu_ops.launches == len(bench_vpu_ops.MIXES)
+    plan, y = _probe_plan_and_input(1 << 10, 3, seed=14, cuda=cuda)
+    bench_ntt_lazy_probe.reset_launches()
+    bench_ntt_anatomy.reset_launches()
+    for which in bench_ntt_lazy_probe.VARIANTS:
+        bench_ntt_lazy_probe.lazy_probe(y, plan, which)
+    bench_ntt_anatomy.anatomy_probe(y, plan, "moves")
+    torch.cuda.synchronize()
+    assert (bench_ntt_lazy_probe.launches, bench_ntt_anatomy.launches) == (3, 1)
+    odd, z = _probe_plan_and_input(1 << 11, 2, seed=15, cuda=cuda)
+    with pytest.raises(ValueError, match="2\\^10, 2\\^12 or 2\\^14"):
+        bench_ntt_lazy_probe.lazy_probe(z, odd, "exact")
+    assert bench_ntt_lazy_probe.launches == 3
+
+
+@pytest.mark.parametrize("mix", bench_vpu_ops.MIXES)
+def test_vpu_ops_chain_not_folded(cuda, mix):
+    """The kernel's loop body holds, per application, at least the fewest
+    instructions one application can take (the compiler folded nothing)."""
+    bench_vpu_ops.vpu_ops(torch.zeros(8, dtype=torch.int32, device=cuda), mix)  # builds
+    assert bench_vpu_ops.sass_per_application(mix)["arith"] >= bench_vpu_ops.MIN_ARITH[mix]
+
+
+def test_probe_k1_line_holds_k1_against_plain(cuda):
+    ps, _, x = bench_ntt_lazy_probe.inputs(1 << 12, 2, 5, cuda)
+    err, ms = bench_ntt_lazy_probe.k1_line(x, ps, cuda, 2)
+    assert err == 0 and ms > 0
