@@ -9,8 +9,10 @@
    timing both with CUDA events: K1 (NTT, q and aux bases, then the nine K1
    launches of one server query, each also replayed from a CUDA graph, in
    the form the kernel chose and in both forced forms, with its bound and
-   share of it), K2 (position sum, whole table and an in-place slice
-   p0 = 3, w = 3 of P = 12) and K3 (the int8 tensor-core NTT, q and aux
+   share of it), K2 (position sum: whole table, an in-place slice p0 = 3,
+   w = 3 of P = 12, the host-resident path's position-major table, a
+   running sum acc updated in place, and the whole table at L = 6..10, each
+   beside its bound) and K3 (the int8 tensor-core NTT, q and aux
    bases, also held against K1, beside its digit products alone as
    torch._int_mm from a CUDA graph; K3 has no caller on the protocol path,
    so its launches come from this phase). The [sass] step counts K3's
@@ -46,7 +48,10 @@
 5. builds the one-query server's table twice more with one mask seed, on
    the device and host-resident (pinned, uploaded in position slices), and
    checks that run() is bit-equal, with the default slice rule and with
-   pos_chunk = 3, timing each;
+   pos_chunk = 3, timing each; then traces one streamed query (4 chunks)
+   and one host-table query (4 slices): K2 adds each chunk's or slice's sum
+   to the running sum and reads the position-major slices in place, so
+   each must launch 4 K2 kernels and no add or transpose of its own;
 6. drives three more paths the same way: ``--bgv`` at the main geometry
    (flat BGV, L = 9; 1024 found, the client decrypts on the host), ``--bgv
    -B 16`` leveled on the main geometry's table with a 4096-item server
@@ -119,8 +124,10 @@ INT32_OPS_S = 128 * 132 * 1.98e9
 # the ALU pipe, so they balance.
 BUTTERFLY_OPS = 8
 SHOUP_OPS = 4       # the inverse's n^-1: a second Shoup product in its last stage
-MONT_OPS = 6        # 32x32->64 product, one low and one high multiply, csub
-ADD_OPS = 3
+# A 32x32->64 multiply (IMAD.WIDE, IMAD.HI) takes two slots of the FMA pipe,
+# which has half of the 128 lanes: INT32_OPS_S / 4 = 8.4 T/s, as the probe A1
+# measured it (benchmarks/bench_vpu_ops.py, mix mulhi: 8.3 T/s).
+WIDE_MUL_S = INT32_OPS_S / 4
 # The nine K1 launches of one server query at L = 6, mul_limbs 5,
 # ship_limbs 4, 8 aux limbs, D = 12 (fhe/bfv.py hps_mul_relin_rescaled and
 # _hps_core, fhe/bgv.py _key_switch_coeffs): (label, inverse, leading
@@ -214,12 +221,14 @@ def k1_bound(rows: int, L: int, n: int, inverse: bool) -> tuple[float, str]:
     return bound(ops, INT32_OPS_S, rows * n * 8 + L * n * 8 + L * 12)
 
 
-def k2_bound(H: int, D: int, P: int, L: int, N: int) -> tuple[float, str]:
+def k2_bound(H: int, D: int, P: int, L: int, N: int, acc: bool = False) -> tuple[float, str]:
     """K2: index (H,P,2,L,N) and the P table positions read once, out
-    (H,D,2,L,N) written once; P Montgomery products and adds per output."""
+    (H,D,2,L,N) written once (with acc, also read once); its operations are
+    the two exact 32x32->64 products per table word at WIDE_MUL_S (each
+    output's one reduction and the adds run beside them)."""
     out = H * D * 2 * L * N
-    return bound(out * P * (MONT_OPS + ADD_OPS), INT32_OPS_S,
-                 4 * (H * P * 2 * L * N + H * D * P * L * N + out) + 8 * L)
+    return bound(2 * H * D * P * L * N, WIDE_MUL_S,
+                 4 * (H * P * 2 * L * N + H * D * P * L * N + out * (2 if acc else 1)) + 8 * L)
 
 
 def k3_bound(rows: int, L: int, n: int, m1: int, digits: int) -> tuple[float, str]:
@@ -408,6 +417,33 @@ def trace_online(step, timed: int = 20, traced: int = 10, warm: int = 3) -> dict
             **{f"{g}_launches_per_query": v[1] / traced for g, v in groups.items()}}
 
 
+def k2_path_queries(pie_dev, pie_host, idx_ct, minus_ct, parts: int = 4) -> dict:
+    """trace_online of the two paths whose running sums K2 carries: one
+    ``--streamChunks`` query (``run_streamed`` over ``parts`` equal
+    contiguous chunks of the index, as the wire delivers them) on the device
+    table, and one host-table query in ``parts`` slices
+    (``_run_host_table``)."""
+    w = pie_dev.P // parts
+    chunks = [(p0, idx_ct.data[:, p0:p0 + w].contiguous()) for p0 in range(0, pie_dev.P, w)]
+    return {
+        f"streamChunks {parts}": trace_online(
+            lambda: pie_dev.run_streamed(iter(chunks), minus_ct)),
+        f"host table, {parts} slices": trace_online(
+            lambda: pie_host._run_host_table(idx_ct, minus_ct, w)),
+    }
+
+
+def print_k2_paths(paths: dict, tag: str = "k2_paths") -> None:
+    for label, tr in paths.items():
+        print(f"[{tag}] {label}: one query, steady state: wall median "
+              f"{tr['wall_ms_median']:.3f} ms; traced: K2 {tr['K2_ms_per_query']:.4f} ms/query "
+              f"({tr['K2_launches_per_query']:.0f} kernels), plain PyTorch "
+              f"{tr['plain_ms_per_query']:.3f} ms/query ({tr['plain_launches_per_query']:.0f} "
+              f"kernels), K1 {tr['K1_ms_per_query']:.4f} ms/query "
+              f"({tr['K1_launches_per_query']:.0f}); busy share {tr['busy_share']:.3f}",
+              flush=True)
+
+
 def main() -> None:
     sys.path.insert(0, ROOT)
     try:
@@ -575,19 +611,66 @@ def main() -> None:
         lambda: pie_kernels.indexed_inner_product(idx_s, pt, tb["p_u32"], tb["pinv_u32"], p0=3),
         lambda: pie_kernels.indexed_inner_product_plain(idx_s, pt, tb["p"], tb["pinv"], p0=3),
         plain_iters=2) + k2_bound(H, D, 3, L, N)
+    # the host-resident path's position-major buffer, read in place through
+    # its (H, D, P, L, N) view
+    pm = pt.permute(2, 0, 1, 3, 4).contiguous().permute(1, 2, 0, 3, 4)
+    results["pie_ip_position_major"] = compare(
+        f"K2 position sum over the position-major ({P},{H},{D},{L},{N}) table",
+        lambda: pie_kernels.indexed_inner_product(idx, pm, tb["p_u32"], tb["pinv_u32"]),
+        lambda: pie_kernels.indexed_inner_product_plain(idx, pm, tb["p"], tb["pinv"]),
+        plain_iters=2) + k2_bound(H, D, P, L, N)
+    del pm
+    # a running sum, updated in place (the streamed chunks' and the host
+    # table's slices' sums): positions [3, 6) added to acc
+    acc0 = residues((H, D, 2, L, N), q)
+    acc = acc0.clone()
+    got = pie_kernels.indexed_inner_product(idx_s, pt, tb["p_u32"], tb["pinv_u32"], p0=3,
+                                            acc=acc)
+    want = pie_kernels.indexed_inner_product_plain(idx_s, pt, tb["p"], tb["pinv"], p0=3,
+                                                   acc=acc0)
+    err = max_err(got, want, "K2 with acc")
+    if err != 0 or got.data_ptr() != acc.data_ptr():
+        fail(f"K2 with acc: max_abs_err {err}, in place {got.data_ptr() == acc.data_ptr()}")
+    ms = time_ms(lambda: pie_kernels.indexed_inner_product(
+        idx_s, pt, tb["p_u32"], tb["pinv_u32"], p0=3, acc=acc), 20)
+    plain_ms = time_ms(lambda: pie_kernels.indexed_inner_product_plain(
+        idx_s, pt, tb["p"], tb["pinv"], p0=3, acc=acc0), 2)
+    results["pie_ip_acc"] = (err, ms, plain_ms) + k2_bound(H, D, 3, L, N, acc=True)
+    print(f"[kernel] K2 position sum over positions [3, 6) added to acc in place: max_abs_err "
+          f"{err} kernel {ms:.4f} ms plain {plain_ms:.4f} ms", flush=True)
     # K2's launch alone: how much of the wrapper's event time above is the
     # host preparing each call
     lib, stream = cuda_lib.get_lib(), torch.cuda.current_stream().cuda_stream
     out = torch.empty((H, D, 2, L, N), dtype=torch.int32, device=dev)
-    for key, ii, p0 in (("pie_ip", idx, 0), ("pie_ip_slice", idx_s, 3)):
+    for key, ii, view in (("pie_ip", idx, pt), ("pie_ip_slice", idx_s, pt[:, :, 3:6])):
         raw_ms = time_ms(lambda: lib.nhpsi_pie_ip(
-            ii.data_ptr(), pt.data_ptr(), out.data_ptr(), tb["p_u32"].data_ptr(),
-            tb["pinv_u32"].data_ptr(), H, D, ii.shape[1], L, N, p0, P, stream), 20)
+            ii.data_ptr(), view.data_ptr(), None, out.data_ptr(), tb["p_u32"].data_ptr(),
+            tb["pinv_u32"].data_ptr(), H, D, ii.shape[1], L, N, ii.stride(0),
+            *view.stride()[:4], stream), 20)
         err, ms, _, b_ms, b_by = results[key]
         print(f"[kernel] K2 {key}: wrapper {ms:.4f} ms, launch alone {raw_ms:.4f} ms, "
               f"bound {b_ms:.4f} ms ({b_by}), share of the bound {b_ms / raw_ms:.3f} "
               f"(launch) {b_ms / ms:.3f} (wrapper)", flush=True)
-    del idx, pt, idx_s, out
+    del idx, pt, idx_s, out, acc, acc0
+    # K2 at L = 6..10 (the flat --bgv path runs L = 9): time and share of
+    # the bound at each, bit-exact with the plain version
+    k2_sweep = {}
+    for Ls in range(6, 11):
+        qs = ntt_primes(Ls, 31, 2 * N, avoid=(T,))
+        tbs = NTTPlan(N, qs).tensors(dev)
+        ii, tt = residues((H, P, 2, Ls, N), qs), residues((H, D, P, Ls, N), qs)
+        err = max_err(pie_kernels.indexed_inner_product(ii, tt, tbs["p_u32"], tbs["pinv_u32"]),
+                      pie_kernels.indexed_inner_product_plain(ii, tt, tbs["p"], tbs["pinv"]),
+                      f"K2 at L = {Ls}")
+        if err != 0:
+            fail(f"K2 at L = {Ls}: kernel disagrees with its plain version (max_abs_err {err})")
+        ms = time_ms(lambda: pie_kernels.indexed_inner_product(
+            ii, tt, tbs["p_u32"], tbs["pinv_u32"]), 20)
+        b_ms, b_by = k2_bound(H, D, P, Ls, N)
+        k2_sweep[Ls] = ms
+        print(f"[k2_sweep] ({H},{D},{P},{Ls},{N}): max_abs_err 0, kernel {ms:.4f} ms, bound "
+              f"{b_ms:.4f} ms ({b_by}), share {b_ms / ms:.3f}", flush=True)
+        del ii, tt
 
     # ---- K2 and K1 at the BGV paths' shapes; the modulus switch ----------
     q9 = ntt_primes(9, 31, 2 * N, avoid=(T,))
@@ -823,6 +906,16 @@ def main() -> None:
               f"table; online {ms_host:.3f} ms vs device table {ms_dev:.3f} ms "
               f"(table {pie_host.table_pt.numel() * 4 / 2**20:.1f} MiB pinned; build "
               f"{t2 - t1:.2f} s host vs {t1 - t0:.2f} s device)", flush=True)
+    # ---- the streamed and host-table queries, traced --------------------
+    # (each chunk's or slice's K2 adds to the running sum and reads the
+    # position-major slices in place: one K2 per part, no add or transpose)
+    k2_paths = k2_path_queries(server.pie, pie_host, i_ct, m_ct)
+    print_k2_paths(k2_paths)
+    for label, tr in k2_paths.items():
+        if round(tr["K2_launches_per_query"]) != 4:
+            fail(f"{label}: {tr['K2_launches_per_query']} K2 kernels per query, expected 4")
+    del pie_dev, pie_host
+    torch.cuda.empty_cache()
     # ---- --bgv (flat, then leveled) and SimpleFHE -----------------------
     client, server, got = drive("bgv flat", BGV_FLAGS)
     if server.ctx.L != 9 or server.pie.leveled or len(client.intersection_calculated) != 1024:
@@ -878,7 +971,15 @@ def main() -> None:
         entry("pie_ip", f"{csrc}/pie_ip.cu", "nested_hashing_psi_tpu/ops/pie_kernels.py:48",
               "pie_ip", launches["pie_ip"], **dict(zip(
                   ("l9_max_abs_err", "l9_ms", "l9_plain_ms", "l9_bound_ms", "l9_bound_by"),
-                  results["pie_ip_l9"]))),
+                  results["pie_ip_l9"])),
+              **{f"{key}_{f}": v for key in ("slice", "position_major", "acc")
+                 for f, v in zip(("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by"),
+                                 results[f"pie_ip_{key}"])},
+              **{f"l{Ls}_sweep_ms": ms for Ls, ms in k2_sweep.items()},
+              **{f"{label.replace(' ', '_').replace(',', '')}_{k}": tr[k]
+                 for label, tr in k2_paths.items()
+                 for k in ("K2_ms_per_query", "K2_launches_per_query",
+                           "plain_ms_per_query", "plain_launches_per_query")}),
         entry("ntt_mxu_fwd", f"{csrc}/ntt_mxu.cu", "nested_hashing_psi_tpu/ops/ntt_mxu.py:323",
               "ntt_mxu_fwd_q", k3_launches["ntt_mxu_fwd"], launches_from=k3_note,
               k1_ms=results["ntt_mxu_fwd_q"][3], int8_products_ms=results["ntt_mxu_fwd_q"][4]),

@@ -31,15 +31,19 @@ __device__ __forceinline__ uint32_t shoup_mul(uint32_t x, uint32_t w,
   return csub(r, p);
 }
 
-// Montgomery product a * b * 2^-32 mod p (REDC), pinv = -p^-1 mod 2^32.
+// Montgomery reduction x * 2^-32 mod p (REDC) of x < p * 2^32, with
+// pinv = -p^-1 mod 2^32: x + m p is a multiple of 2^32, its low word carries
+// out unless lo == 0, and the quotient is below 2p.
+__device__ __forceinline__ uint32_t redc(uint64_t x, uint32_t p, uint32_t pinv) {
+  const uint32_t lo = static_cast<uint32_t>(x);
+  const uint32_t m = lo * pinv;
+  return csub(static_cast<uint32_t>(x >> 32) + __umulhi(m, p) + (lo != 0u), p);
+}
+
+// Montgomery product a * b * 2^-32 mod p.
 __device__ __forceinline__ uint32_t mont_mul(uint32_t a, uint32_t b,
                                              uint32_t p, uint32_t pinv) {
-  uint64_t x = static_cast<uint64_t>(a) * b;
-  uint32_t lo = static_cast<uint32_t>(x);
-  uint32_t hi = static_cast<uint32_t>(x >> 32);
-  uint32_t m = lo * pinv;
-  uint32_t t = hi + __umulhi(m, p) + (lo != 0u);
-  return csub(t, p);
+  return redc(static_cast<uint64_t>(a) * b, p, pinv);
 }
 
 }  // namespace nhpsi

@@ -32,13 +32,15 @@ _lib = None
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_LL = ctypes.c_longlong
 _SIGNATURES = {
     # (x, y, twiddle_pairs, iscale, primes, rows, L, logn, inverse, grids*, stream)
     "nhpsi_ntt": [_P] * 5 + [_I] * 4 + [ctypes.POINTER(_I), _P],
     # as nhpsi_ntt with a forced form before grids*
     "nhpsi_ntt_form": [_P] * 5 + [_I] * 5 + [ctypes.POINTER(_I), _P],
-    # (idx, pt, out, primes, pinvs, H, D, P, L, N, p0, P_full, stream)
-    "nhpsi_pie_ip": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # (idx, pt, acc, out, primes, pinvs, H, D, P, L, N, idx h stride,
+    #  table h, d, p, l strides, stream)
+    "nhpsi_pie_ip": [_P] * 6 + [_I] * 5 + [_LL] * 5 + [_P],
     # (x, y, tmp, ga, gb, tw, rc, primes, pinvs, rows, L, m1, m2, inverse,
     #  launched*, stream)
     "nhpsi_ntt_mxu": [_P] * 9 + [_I] * 5 + [ctypes.POINTER(_I), _P],

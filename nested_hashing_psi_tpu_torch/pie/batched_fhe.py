@@ -63,11 +63,13 @@ def batched_pie_forward(
     )
 
 
-def position_sum(ctx: BGVContext, idx_data, table_pt, p0: int | None = None) -> torch.Tensor:
+def position_sum(ctx: BGVContext, idx_data, table_pt, p0: int | None = None,
+                 acc: torch.Tensor | None = None) -> torch.Tensor:
     """Per-(hash, depth) position-summed ct x pt products: (H, D, 2, L, N);
     with p0, over table positions [p0, p0 + idx_data.shape[1]), read in
-    place."""
-    return indexed_inner_product(idx_data, table_pt, ctx.p_u32, ctx.pinv_u32, p0)
+    place (table_pt is any (H, D, P, L, N) view with a contiguous n axis);
+    with acc, added to the running sum acc in place (K2 does the add)."""
+    return indexed_inner_product(idx_data, table_pt, ctx.p_u32, ctx.pinv_u32, p0, acc)
 
 
 def combine_ip(
@@ -296,22 +298,24 @@ class BatchedFHEPIE(nn.Module):
         return self.table_pt.permute(2, 0, 1, 3, 4)
 
     def _upload(self, p0: int, w: int) -> torch.Tensor:
-        """Positions [p0, p0 + w) of the host table on the device, as an
-        (H, D, w, L, N) tensor (on the current stream)."""
-        part = self._host_positions()[p0 : p0 + w]
-        return part.to(self.ctx.device, non_blocking=True).permute(1, 2, 0, 3, 4).contiguous()
+        """Positions [p0, p0 + w) of the host table on the device (on the
+        current stream), as the (H, D, w, L, N) view of their position-major
+        (w, H, D, L, N) copy, which K2 reads in place."""
+        part = self._host_positions()[p0 : p0 + w].to(self.ctx.device, non_blocking=True)
+        return part.permute(1, 2, 0, 3, 4)
 
     def _run_host_table(
         self, index_cts: Ciphertext, minus_ct: Ciphertext,
         pos_chunk: int | None = None,
     ) -> Ciphertext:
         """Online step with the packed table in host memory: equal-width
-        position slices are uploaded and position-summed (K2) one by one and
-        the partial sums accumulated, then the combine stage runs on the
-        device. On a GPU each upload runs on a copy stream into one of two
-        device buffers, so slice k+1 crosses the bus while K2 works on slice
-        k; events order each buffer's reuse. Default slice: the widest
-        divisor of P whose slice stays within 2 GiB."""
+        position slices are uploaded and position-summed (K2, reading each
+        position-major slice in place and adding it to the running sum) one
+        by one, then the combine stage runs on the device. On a GPU each
+        upload runs on a copy stream into one of two device buffers, so
+        slice k+1 crosses the bus while K2 works on slice k; events order
+        each buffer's reuse. Default slice: the widest divisor of P whose
+        slice stays within 2 GiB."""
         ctx, P = self.ctx, self.P
         if pos_chunk is None:
             per_pos = self.H * self.D * ctx.L * ctx.n * 4
@@ -323,8 +327,7 @@ class BatchedFHEPIE(nn.Module):
         ip = None
         if ctx.device.type != "cuda":
             for p0 in starts:
-                part = position_sum(ctx, idx[:, p0 : p0 + w], self._upload(p0, w))
-                ip = part if ip is None else add_mod(ip, part, ctx.p)
+                ip = position_sum(ctx, idx[:, p0 : p0 + w], self._upload(p0, w), acc=ip)
             return self._combine(ip, minus_ct.data)
         host = self._host_positions()
         compute = torch.cuda.current_stream(ctx.device)
@@ -344,10 +347,9 @@ class BatchedFHEPIE(nn.Module):
                 bufs[b].copy_(host[p0 : p0 + w], non_blocking=True)
                 loaded[b].record(copy)
             compute.wait_event(loaded[b])
-            tbl = bufs[b].permute(1, 2, 0, 3, 4).contiguous()
-            freed[b].record(compute)
-            part = position_sum(ctx, idx[:, p0 : p0 + w], tbl)
-            ip = part if ip is None else add_mod(ip, part, ctx.p)
+            ip = position_sum(ctx, idx[:, p0 : p0 + w], bufs[b].permute(1, 2, 0, 3, 4),
+                              acc=ip)
+            freed[b].record(compute)  # after the K2 launch that reads bufs[b]
         return self._combine(ip, minus_ct.data)
 
     def run_streamed(self, chunks, minus_ct: Ciphertext) -> Ciphertext:
@@ -358,17 +360,16 @@ class BatchedFHEPIE(nn.Module):
         or device tensor). Each chunk's position sum (K2 over the table's
         positions [p0, p0 + w), read in place) is enqueued as it arrives and
         nothing synchronises, so the device works on chunk k while the
-        caller reads chunk k+1; the partial sums accumulate mod q, then
-        combine_ip runs once."""
+        caller reads chunk k+1; each chunk's K2 adds its sum to the running
+        sum mod q in place, then combine_ip runs once."""
         ctx = self.ctx
         ip = None
         for p0, idx_chunk in chunks:
             idx_chunk = idx_chunk.to(ctx.device, non_blocking=True)
             if self.host_table:
-                part = position_sum(ctx, idx_chunk, self._upload(p0, idx_chunk.shape[1]))
+                ip = position_sum(ctx, idx_chunk, self._upload(p0, idx_chunk.shape[1]), acc=ip)
             else:
-                part = position_sum(ctx, idx_chunk, self.table_pt, p0)
-            ip = part if ip is None else add_mod(ip, part, ctx.p)
+                ip = position_sum(ctx, idx_chunk, self.table_pt, p0, acc=ip)
         return self._combine(ip, minus_ct.data)
 
     def run(self, index_cts: Ciphertext, minus_ct: Ciphertext) -> Ciphertext:

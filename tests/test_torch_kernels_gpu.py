@@ -381,6 +381,145 @@ def test_pie_kernel_matches_plain_bgv_geometry(cuda, L, t):
     assert torch.equal(got, pie_kernels.indexed_inner_product_plain(idx, pt, tb["p"], tb["pinv"]))
 
 
+def _k2_case(H, D, P, L, N, seed, fill="random"):
+    ps = ntt_primes(L, 31, 2 * 16384)
+    if fill == "max":
+        p = torch.tensor(ps, dtype=torch.int64).reshape(L, 1)
+        return ps, (p - 1).expand(H, P, 2, L, N).int().contiguous(), \
+            (p - 1).expand(H, D, P, L, N).int().contiguous()
+    return ps, _residues((H, P, 2, L, N), ps, seed), _residues((H, D, P, L, N), ps, seed + 1)
+
+
+@pytest.mark.parametrize("fill", ["random", "max"])
+@pytest.mark.parametrize("L", [6, 9])
+@pytest.mark.parametrize("P", [1, 40])
+def test_pie_kernel_deferred_reduction_extremes(cuda, P, L, fill):
+    """One reduction per output: P = 1 and P = 40 (sums past 2^64 when every
+    residue is q - 1), H = D = 1, bit-exact with the plain version."""
+    ps, idx, pt = _k2_case(1, 1, P, L, 1024, seed=P + L)
+    tb = NTTPlan(1024, ps).tensors(cuda)
+    idx, pt = idx.to(cuda), pt.to(cuda)
+    got = pie_kernels.indexed_inner_product(idx, pt, tb["p_u32"], tb["pinv_u32"])
+    torch.cuda.synchronize()
+    assert torch.equal(got, pie_kernels.indexed_inner_product_plain(idx, pt, tb["p"], tb["pinv"]))
+
+
+@pytest.mark.parametrize("N", [4, 1000, 16384 + 260])
+def test_pie_kernel_ragged_tile(cuda, N):
+    """n not a multiple of the kernel's 256-column tile."""
+    ps, idx, pt = _k2_case(2, 3, 5, 3, N, seed=N)
+    tb = NTTPlan(1024, ps).tensors(cuda)
+    idx, pt = idx.to(cuda), pt.to(cuda)
+    got = pie_kernels.indexed_inner_product(idx, pt, tb["p_u32"], tb["pinv_u32"])
+    torch.cuda.synchronize()
+    assert torch.equal(got, pie_kernels.indexed_inner_product_plain(idx, pt, tb["p"], tb["pinv"]))
+
+
+@pytest.mark.parametrize("fill", ["random", "max"])
+@pytest.mark.parametrize("with_acc", [False, True], ids=["sum", "acc"])
+@pytest.mark.parametrize("layout", ["standard", "position_major"])
+@pytest.mark.parametrize("p0,w", [(0, 12), (3, 3), (7, 5)])
+def test_pie_kernel_layouts_slices_and_acc(cuda, p0, w, layout, with_acc, fill):
+    """Positions [p0, p0 + w) of the (H, D, P, L, N) table or of the
+    position-major (P, H, D, L, N) buffer's (H, D, P, L, N) view, read in
+    place, with and without
+    a running sum acc, which the kernel updates in place; the index may be a
+    position slice of a wider one."""
+    H, D, P, L, N = 2, 4, 12, 6, 2048
+    ps, idx_full, pt = _k2_case(H, D, P, L, N, seed=p0 * 31 + w, fill=fill)
+    tb = NTTPlan(2048, ps).tensors(cuda)
+    idx = idx_full.to(cuda)[:, p0 : p0 + w]  # a view: not contiguous unless w = P
+    table = pt.to(cuda)
+    if layout == "position_major":
+        table = table.permute(2, 0, 1, 3, 4).contiguous().permute(1, 2, 0, 3, 4)
+    acc = None
+    if with_acc:
+        acc = _residues((H, D, 2, L, N), ps, seed=99).to(cuda)
+        if fill == "max":
+            acc = torch.full_like(acc, 0) + (tb["p"].reshape(L, 1) - 1).int()
+    want = pie_kernels.indexed_inner_product_plain(
+        idx, table, tb["p"], tb["pinv"], p0, None if acc is None else acc.clone())
+    before = pie_kernels.launches
+    got = pie_kernels.indexed_inner_product(idx, table, tb["p_u32"], tb["pinv_u32"], p0, acc)
+    torch.cuda.synchronize()
+    assert pie_kernels.launches == before + 1
+    assert torch.equal(got, want)
+    if with_acc:
+        assert got.data_ptr() == acc.data_ptr()
+
+
+def test_pie_kernel_refusals_raise(cuda):
+    """What the kernel does not take raises: n not a multiple of 4, a table
+    view that is not 16-byte aligned, and a launch the card refuses (the
+    index staging for P = 200 needs more shared memory than a block has)."""
+    ps = ntt_primes(1, 31, 2 * 64)
+    tb = NTTPlan(64, ps).tensors(cuda)
+    with pytest.raises(ValueError):
+        z = torch.zeros((1, 2, 2, 1, 6), dtype=torch.int32, device=cuda)
+        pie_kernels.indexed_inner_product(z, torch.zeros((1, 1, 2, 1, 6), dtype=torch.int32,
+                                                         device=cuda), tb["p_u32"], tb["pinv_u32"])
+    flat = torch.zeros(1 + 2 * 8, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        pie_kernels.indexed_inner_product(
+            torch.zeros((1, 2, 2, 1, 8), dtype=torch.int32, device=cuda),
+            flat[1:].view(1, 1, 2, 1, 8), tb["p_u32"], tb["pinv_u32"])
+    before = pie_kernels.launches
+    with pytest.raises(RuntimeError, match="launch failed"):
+        pie_kernels.indexed_inner_product(
+            torch.zeros((1, 200, 2, 1, 8), dtype=torch.int32, device=cuda),
+            torch.zeros((1, 1, 200, 1, 8), dtype=torch.int32, device=cuda),
+            tb["p_u32"], tb["pinv_u32"])
+    assert pie_kernels.launches == before
+
+
+@pytest.mark.parametrize("Ps", [(30, 40, 12), (40, 30, 12)], ids=["rising", "falling"])
+def test_pie_kernel_shared_memory_sizes_and_persistent_grid(cuda, Ps):
+    """Launches at several shared-memory sizes (60 KB, 80 KB and 24 KB of
+    staged index), in either order: each size's grid is found on its first
+    launch and kept, and the kernel's limit above 48 KB only rises. Each
+    shape has more (h, l, tile) items than resident blocks, so every launch
+    walks equal runs of (item, depth) units over the persistent grid."""
+    for P in Ps:
+        ps, idx, pt = _k2_case(2, 2, P, 6, 32768, seed=P)
+        tb = NTTPlan(1024, ps).tensors(cuda)
+        idx, pt = idx.to(cuda), pt.to(cuda)
+        for _ in range(2):
+            got = pie_kernels.indexed_inner_product(idx, pt, tb["p_u32"], tb["pinv_u32"])
+            torch.cuda.synchronize()
+            assert torch.equal(got, pie_kernels.indexed_inner_product_plain(
+                idx, pt, tb["p"], tb["pinv"])), P
+        del idx, pt, got
+        torch.cuda.empty_cache()
+
+
+def test_streamed_and_host_table_fold_their_adds_into_k2(cuda):
+    """--streamChunks and the host-resident table: each chunk's or slice's
+    K2 adds to the running sum itself, so the PIE launches one K2 per chunk
+    or slice and no separate add or table transpose; the results equal the
+    device table's."""
+    from nested_hashing_psi_tpu_torch.pie.batched_fhe import BatchedFHEPIE
+    from nested_hashing_psi_tpu_torch.protocol.runner import run_in_process
+
+    psi, ht = _small_protocol()
+    client, server, ok = run_in_process(psi, ht, device="cuda")
+    assert ok
+    dev = BatchedFHEPIE(server.ctx, server.server_table, server.rlk, mask_seed=5)
+    host = BatchedFHEPIE(server.ctx, server.server_table, server.rlk, mask_seed=5,
+                         host_table=True)
+    i, m = client.idx_ct, client.minus_ct
+    want = dev.run(i, m).data
+    chunks = [(p0, i.data[:, p0 : p0 + 3]) for p0 in range(0, dev.P, 3)]
+    for pie in (dev, host):
+        pie_kernels.reset_launches()
+        got = pie.run_streamed(iter(chunks), m).data
+        torch.cuda.synchronize()
+        assert torch.equal(got, want) and pie_kernels.launches == len(chunks)
+    pie_kernels.reset_launches()
+    got = host._run_host_table(i, m, 4).data
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and pie_kernels.launches == dev.P // 4
+
+
 def _bgv_pair(cuda, n, L):
     from nested_hashing_psi_tpu_torch.fhe.bgv import BGVContext
     from nested_hashing_psi_tpu_torch.fhe.params import SchemeParams
