@@ -59,13 +59,24 @@
    and traced as in 3, and SimpleFHE at full width and reduced scale (32
    inner tables at L = 7; 8 found, K1 launched, the client decrypts on
    the device; traced over 3 timed and 2 traced queries). The kernel
-   line's launches sum all six runs.
+   line's launches sum all six runs;
+7. [elgamal]: SimpleElGamal and PrecompElGamal (P-256, -B 128, --nThreads 2)
+   at 2^14 server x 32 client items, and SimpleElGamal on K-163, through
+   the same entry points with device cuda, each verifying with the
+   expected intersection and launching no kernel (both packages compute
+   these protocols on the host); prints each party's phase times, the
+   server's compute times and the phase's seconds, as host timings beside
+   the host CPU's model and the card's name and power limit.
 
-It fails if jax or the JAX package nested_hashing_psi_tpu was imported. It
-prints the card's name and power limit, one JSON line listing the kernels
-(each with its bound: the larger of its bytes over 3.35 TB/s and its
-operations over the card's peak rate for their type), and as its last line
-{"ok": true, "device": {...}}. Any failure exits non-zero without that line;
+The A1 probe's bound counts each mix's busier pipe (bench_vpu_ops.ops_per_app:
+64 lanes per clock per SM each, a wide product two FMA-pipe slots); the
+[a1_bound] line prints each mix's share at K = 64 and at K = 2^15.
+
+It fails if jax, the JAX package nested_hashing_psi_tpu or cryptography
+was imported. It prints the card's name and power limit, one JSON line
+listing the kernels (each with its bound: the larger of its bytes over 3.35
+TB/s and its operations over the card's peak rate for their type), and as
+its last line {"ok": true, "device": {...}}. Any failure exits non-zero without that line;
 so does a machine without CUDA.
 """
 
@@ -106,6 +117,23 @@ SIMPLE_FLAGS = [
     "-e", "16", "-E", "12", "-b", "12", "-k", "2", "-K", "2", "--device", "cuda",
 ]
 T16 = 65537
+# The ElGamal protocols (no -F; the CLI's default is SimpleElGamal, -P
+# PrecompElGamal) at the reference sweep's item width (-B 128) and 2HF
+# equal-block geometry, -e scaled from the 2^20 row's 8022 to a 2^14-item
+# server (126); 32 client items, 16 in common; P-256, --nThreads 2. Then
+# SimpleElGamal on the binary curve K-163 at the JAX tests' geometry. Both
+# packages compute these protocols on the host: no kernel launches.
+ELGAMAL_FLAGS = [
+    "-B", "128", "-S", "16384", "-C", "32", "-I", "16", "-e", "126", "-E", "12", "-b", "12",
+    "-k", "2", "-K", "2", "--nThreads", "2", "--curve", "P-256", "--device", "cuda",
+]
+ELGAMAL_RUNS = (
+    ("SimpleElGamal P-256", ELGAMAL_FLAGS),
+    ("PrecompElGamal P-256", ELGAMAL_FLAGS + ["-P"]),
+    ("SimpleElGamal K-163", ["-B", "16", "-S", "60", "-C", "4", "-I", "2", "-e", "8", "-E",
+                             "6", "-b", "3", "-k", "2", "-K", "2", "--curve", "K-163",
+                             "--device", "cuda"]),
+)
 
 # H100 SXM peaks for the bounds: 3.35 TB/s of HBM3 and 1,979 T int8
 # tensor-core ops/s (NVIDIA's data sheet). 32-bit integer instructions run
@@ -442,6 +470,86 @@ def print_k2_paths(paths: dict, tag: str = "k2_paths") -> None:
               f"kernels), K1 {tr['K1_ms_per_query']:.4f} ms/query "
               f"({tr['K1_launches_per_query']:.0f}); busy share {tr['busy_share']:.3f}",
               flush=True)
+
+
+def host_cpu() -> str:
+    """The host CPU as lscpu names it: its model name, and its vendor,
+    family and model number (a host may withhold the name), with the
+    logical CPUs."""
+    try:
+        out = subprocess.run(["lscpu"], capture_output=True, text=True, timeout=30).stdout
+    except OSError:
+        return f"lscpu unavailable, {os.cpu_count()} logical CPUs"
+    f = {k.strip(): v.strip() for k, _, v in (ln.partition(":") for ln in out.splitlines())}
+    return (f"model name {f.get('Model name', '?')} ({f.get('Vendor ID', '?')} family "
+            f"{f.get('CPU family', '?')} model {f.get('Model', '?')}), "
+            f"{os.cpu_count()} logical CPUs")
+
+
+def elgamal_phase(cli, run_in_process, reset_counts, read_counts, smi_line: str) -> dict:
+    """[elgamal]: each run of ELGAMAL_RUNS through cli.parse_args and
+    run_in_process on device cuda, with every kernel count set to 0 just
+    before (reset_counts) and read just after (read_counts: the path
+    launches none); fails unless it verifies with the expected
+    intersection. The server's phases are timed by wrapping its phase
+    methods. Returns {label: times}."""
+    from nested_hashing_psi_tpu_torch.protocol import elgamal
+
+    print(f"[elgamal] host timings (the ElGamal parties compute on the host in both "
+          f"packages; no kernel runs): host CPU {host_cpu()} | card {smi_line}", flush=True)
+    server_s: dict[str, float] = {}
+
+    def timed(fn, phase):
+        def run(self):
+            t0 = time.perf_counter()
+            fn(self)
+            server_s[phase] = time.perf_counter() - t0
+        return run
+
+    out, t_phase = {}, time.perf_counter()
+    for label, flags in ELGAMAL_RUNS:
+        psi, ht, device = cli.parse_args(flags)
+        reset_counts()
+        server_s.clear()
+        cls = elgamal.PrecompElGamalPSIServer if psi.precomp else elgamal.SimpleElGamalPSIServer
+        saved = {ph: getattr(cls, f"run_{ph}_phase") for ph in ("setup", "offline", "online")}
+        try:
+            for ph, fn in saved.items():
+                setattr(cls, f"run_{ph}_phase", timed(fn, ph))
+            t0 = time.perf_counter()
+            client, server, ok = run_in_process(psi, ht, device=device)
+            wall = time.perf_counter() - t0
+        finally:
+            for ph, fn in saved.items():
+                setattr(cls, f"run_{ph}_phase", fn)
+        launched = read_counts()
+        found = len(client.intersection_calculated)
+        m = {k: v.duration_us / 1e6 for k, v in client.measurements.items()}
+        times = {"wall_s": wall, **{f"client_{k.lower()}_s": v for k, v in m.items()},
+                 **{f"server_{k}_s": v for k, v in server_s.items()},
+                 "server_offline_compute_s": server.offline_computation_us / 1e6,
+                 "server_online_compute_s": server.online_computation_us / 1e6}
+        print(f"[elgamal] {label}: {' '.join(flags)} | {client.protocol_name} found={found} "
+              f"ok={ok} native={server.enc.group._native is not None}/"
+              f"{client.enc.group._native is not None} (server/client) | client setup "
+              f"{m['Setup']:.3f} s, offline {m['Offline']:.3f} s, online {m['Online']:.3f} s | "
+              f"server setup {server_s['setup']:.3f} s, offline {server_s['offline']:.3f} s, "
+              f"online {server_s['online']:.3f} s; offline compute "
+              f"{times['server_offline_compute_s']:.3f} s, online compute (sum over its "
+              f"jobs) {times['server_online_compute_s']:.3f} s | wall {wall:.3f} s | "
+              f"kernel launches {launched}", flush=True)
+        if not ok or found != psi.intersection_set_size:
+            fail(f"[elgamal] {label} did not verify: ok={ok} found={found}")
+        if any(launched.values()):
+            fail(f"[elgamal] {label} launched kernels on a host-only path: {launched}")
+        if (server.enc.group._native is None or client.enc.group._native is None
+                or client.device.type != "cuda"):
+            fail(f"[elgamal] {label}: a party ran without the native EC library, or the "
+                 "device was not resolved")
+        out[label] = times
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"[elgamal] phase {out['phase_s']:.2f} s", flush=True)
+    return out
 
 
 def main() -> None:
@@ -944,11 +1052,25 @@ def main() -> None:
         fail("the SimpleFHE client did not decrypt on the device")
     traced("SimpleFHE", timed=3, n_traced=2, warm=1)
     print(f"[main] kernel launches over all six runs {launches}", flush=True)
+    torch.cuda.empty_cache()
 
-    loaded = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
-                    or m == "nested_hashing_psi_tpu" or m.startswith("nested_hashing_psi_tpu."))
+    # ---- the ElGamal protocols: host-only, no kernel launches -----------
+    def kernel_counts():
+        return {"ntt_fwd": ntt_cuda.launches["ntt"], "ntt_inv": ntt_cuda.launches["intt"],
+                "pie_ip": pie_kernels.launches, "ntt_mxu_fwd": ntt_mxu.launches["ntt"],
+                "ntt_mxu_inv": ntt_mxu.launches["intt"]}
+
+    def reset_all():
+        ntt_cuda.reset_launches()
+        pie_kernels.reset_launches()
+        ntt_mxu.reset_launches()
+
+    elgamal_times = elgamal_phase(cli, run_in_process, reset_all, kernel_counts, smi_line)
+
+    loaded = sorted(m for m in sys.modules if m in ("jax", "nested_hashing_psi_tpu", "cryptography")
+                    or m.startswith(("jax.", "nested_hashing_psi_tpu.", "cryptography.")))
     if loaded:
-        fail(f"the port loaded jax or the JAX package: {loaded[:10]}")
+        fail(f"the port loaded jax, the JAX package or cryptography: {loaded[:10]}")
 
     def entry(name, source, replaces, key, launched, **extra):
         err, ms, plain_ms = results[key][:3]
@@ -989,17 +1111,28 @@ def main() -> None:
     ]
     vpu_run = probe_runs["vpu"]
     # the 11 K = 64 launches: the larger of their summed bytes and operations
+    # (each mix's operations: its busier pipe's issue slots, bench_vpu_ops.ops_per_app)
     elems = int(np.prod(bench_vpu_ops.SHAPE))
-    t_ops = sum(vpu_sass[m]["arith"] for m in vpu_run) * elems * bench_vpu_ops.K / INT32_OPS_S * 1e3
+    t_ops = sum(bench_vpu_ops.ops_per_app(vpu_sass[m]) for m in vpu_run) * elems * \
+        bench_vpu_ops.K / bench_vpu_ops.PIPE_OPS_S * 1e3
     t_bytes = len(vpu_run) * 8 * elems / HBM_BYTES_S * 1e3
     vpu_extra = {}
     for m, r in vpu_run.items():
         vpu_extra.update({
-            f"{m}_k64_ms": r["ms"], f"{m}_rate_k": r["rate_k"], f"{m}_rate_ms": r["rate_ms"],
-            f"{m}_rate_bound_ms": r["bound_ms"], f"{m}_rate_bound_by": r["bound_by"],
+            f"{m}_k64_ms": r["ms"], f"{m}_k64_bound_ms": r["k_bound_ms"],
+            f"{m}_k64_share": r["k_bound_ms"] / r["ms"], f"{m}_rate_k": r["rate_k"],
+            f"{m}_rate_ms": r["rate_ms"], f"{m}_rate_bound_ms": r["bound_ms"],
+            f"{m}_rate_bound_by": r["bound_by"], f"{m}_rate_share": r["bound_ms"] / r["rate_ms"],
             f"{m}_sass_fma_per_app": vpu_sass[m]["fma"],
+            f"{m}_sass_fma_slots_per_app": vpu_sass[m]["fma_slots"],
             f"{m}_sass_alu_per_app": vpu_sass[m]["alu"],
             f"{m}_T_instructions_s": r["apps_per_s"] * vpu_sass[m]["arith"] / 1e12})
+    print("[a1_bound] per mix, bound by pipe / kernel = share: K = 64 at (64,128,128); "
+          "K = 2^15: " + "; ".join(
+              f"{m} {vpu_extra[f'{m}_k64_share']:.3f}, {vpu_extra[f'{m}_rate_share']:.3f}"
+              for m in vpu_run) + f"; the 11 K = 64 launches summed: bound "
+          f"{max(t_ops, t_bytes):.4f} ms / {sum(r['ms'] for r in vpu_run.values()):.4f} ms = "
+          f"{max(t_ops, t_bytes) / sum(r['ms'] for r in vpu_run.values()):.3f}", flush=True)
     kernels.append({
         "name": "probe_vpu_ops", "route": "cuda", "source": f"{csrc}/probe_vpu_ops.cu",
         "replaces": "benchmarks/bench_vpu_ops.py:101", "launches": probe_launches["probe_vpu_ops"],
@@ -1036,6 +1169,7 @@ def main() -> None:
                                moves_sass_sts_static=moves_ops.get("STS", 0),
                                stages_over_full=anat["stages"]["ms"] / anat["k1_ms"],
                                moves_over_full=anat["moves"]["ms"] / anat["k1_ms"]))
+    print(f"[elgamal] times {json.dumps(elgamal_times)}", flush=True)
     print(smi_line)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -149,12 +149,24 @@ def sass_per_application(name: str) -> dict:
     return common.by_pipe(body, UNROLL * ELEMS)
 
 
-def bound_ms(elems: int, k: int, arith_per_app: float) -> tuple[float, str]:
+# one 64-lane pipe of every SM: 64 x 132 SMs x 1.98 GHz = 16.7 T lanes/s
+PIPE_OPS_S = 64 * 132 * 1.98e9
+
+
+def ops_per_app(sass: dict) -> float:
+    """Issue slots of one application on its busier pipe: the FMA pipe's
+    slots (a wide product two, an FP32 instruction half) or the ALU pipe's
+    instructions, each pipe 64 lanes per clock per SM. A mix balanced over
+    both pipes reaches 128 lanes per clock; a one-pipe mix 64."""
+    return max(sass["fma_slots"], sass["alu"])
+
+
+def bound_ms(elems: int, k: int, sass: dict) -> tuple[float, str]:
     """The larger of the bytes (x read, the result written, 4 bytes each at
-    3.35 TB/s) and the arithmetic instructions at 128 lanes per clock per
-    SM (132 SMs, 1.98 GHz: 33.5 T/s, the integer and the FP32 pipes alike)."""
+    3.35 TB/s) and the busier pipe's issue slots (``ops_per_app``) at
+    PIPE_OPS_S."""
     t_bytes = 2 * 4 * elems / 3.35e12 * 1e3
-    t_ops = elems * k * arith_per_app / (128 * 132 * 1.98e9) * 1e3
+    t_ops = elems * k * ops_per_app(sass) / PIPE_OPS_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -181,7 +193,8 @@ def run(device: str = "cuda", shape=SHAPE, mixes=MIXES, iters: int = 5) -> dict:
             r["rate_ms"] = common.time_ms(lambda: vpu_ops(x, name, RATE_K), dev, iters)
             r["rate_k"] = RATE_K
             r["sass"] = sass_per_application(name)
-            r["bound_ms"], r["bound_by"] = bound_ms(elems, RATE_K, r["sass"]["arith"])
+            r["bound_ms"], r["bound_by"] = bound_ms(elems, RATE_K, r["sass"])
+            r["k_bound_ms"] = bound_ms(elems, K, r["sass"])[0]
             r["apps_per_s"] = elems * RATE_K / (r["rate_ms"] * 1e-3)
         else:
             r["apps_per_s"] = elems * K / (r["ms"] * 1e-3)
@@ -206,9 +219,13 @@ def main(argv=None) -> dict:
         if "sass" in r:
             s = r["sass"]
             line += (f" at K = {r['rate_k']} ({r['rate_ms']:.4f} ms; bound {r['bound_ms']:.4f} "
-                     f"ms by {r['bound_by']}); SASS per application: FMA pipe {s['fma']:.2f}, "
+                     f"ms by {r['bound_by']}, share {r['bound_ms'] / r['rate_ms']:.3f}); SASS "
+                     f"per application: FMA pipe {s['fma']:.2f} ({s['fma_slots']:.2f} slots), "
                      f"ALU {s['alu']:.2f} -> {r['apps_per_s'] * s['arith'] / 1e12:.2f} T "
-                     f"instructions/s; K = {K}: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms")
+                     f"instructions/s; K = {K}: {r['ms']:.4f} ms (bound {r['k_bound_ms']:.4f} "
+                     f"ms, share {r['k_bound_ms'] / r['ms']:.3f}), plain {r['plain_ms']:.4f} ms; "
+                     "opcodes per application: " + ", ".join(
+                         f"{op} {v:.2f}" for op, v in s["opcodes"].items() if v >= 0.05))
         else:
             line += f" (K = {K}, {r['ms']:.3f} ms)"
         print(line, flush=True)

@@ -14,8 +14,11 @@ import torch
 from nested_hashing_psi_tpu_torch.ops import cuda_lib
 
 # SASS opcodes (the part before the first dot) by the unit that runs them;
-# the ALU pipe and the other arithmetic units take the rest
-FMA_PIPE = ("IMAD", "IMUL", "FFMA", "FMUL", "FADD", "HFMA2")
+# the ALU pipe and the other arithmetic units take the rest. Hopper's VIADD
+# issues on the FMA pipe: A1's where_ge (one VIADD and one ISETP per
+# application) runs at 30.7 T instructions/s, two pipes' rate (H100 80GB
+# HBM3, 700 W; bench_vpu_ops.py).
+FMA_PIPE = ("IMAD", "IMUL", "VIADD", "FFMA", "FMUL", "FADD", "HFMA2")
 MEMORY = ("LDG", "STG", "LDS", "STS", "LDC", "ULDC", "LD", "ST", "LDGSTS")
 CONTROL = ("BRA", "EXIT", "NOP", "BAR", "BSSY", "BSYNC", "RET", "CALL")
 
@@ -100,12 +103,24 @@ def loop_body(instrs: list[tuple[int, str, str]]) -> list[tuple[int, str, str]]:
     return best
 
 
+def fma_pipe_slots(op: str) -> float:
+    """Issue slots of one FMA-pipe instruction on the 64-lane integer FMA
+    pipe: a wide or high 32x32 product (IMAD.WIDE, IMAD.HI) takes two, an
+    FP32 instruction half (the SM's 128 FP32 lanes per clock), the rest one."""
+    base = op.split(".")[0]
+    if base in ("IMAD", "IMUL") and (".WIDE" in op or ".HI" in op):
+        return 2.0
+    return 0.5 if base in ("FFMA", "FMUL", "FADD", "HFMA2") else 1.0
+
+
 def by_pipe(instrs, units: float) -> dict[str, float]:
     """Instruction counts per unit of work (an application, a butterfly, an
     element): FMA pipe, ALU and other arithmetic, memory, control, and the
-    arithmetic total (FMA + ALU), plus the opcode histogram."""
+    arithmetic total (FMA + ALU), the FMA pipe's issue slots
+    (``fma_pipe_slots``), plus the opcode histogram."""
     ops = [op.split(".")[0] for _, op, _ in instrs]
     fma = sum(o in FMA_PIPE for o in ops)
+    slots = sum(fma_pipe_slots(op) for _, op, _ in instrs if op.split(".")[0] in FMA_PIPE)
     mem = sum(o in MEMORY for o in ops)
     ctl = sum(o in CONTROL for o in ops)
     alu = len(ops) - fma - mem - ctl
@@ -113,7 +128,7 @@ def by_pipe(instrs, units: float) -> dict[str, float]:
     for o in ops:
         hist[o] = hist.get(o, 0) + 1
     return {"fma": fma / units, "alu": alu / units, "memory": mem / units,
-            "control": ctl / units, "arith": (fma + alu) / units,
+            "control": ctl / units, "arith": (fma + alu) / units, "fma_slots": slots / units,
             "opcodes": {k: v / units for k, v in sorted(hist.items())}}
 
 

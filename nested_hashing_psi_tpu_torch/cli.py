@@ -8,8 +8,11 @@
 
 ``--device`` defaults to ``cuda`` and fails when no GPU is present; pass
 ``--device cpu`` to run on the CPU. BatchedFHE (``-F --batched``) and
-SimpleFHE (``-F``) are ported, each under BFV or ``--bgv``; the ElGamal
-protocols (no ``-F``) raise NotImplementedError. As in the JAX package,
+SimpleFHE (``-F``) are ported, each under BFV or ``--bgv``, and so are
+SimpleElGamal (no ``-F``, the default) and PrecompElGamal (``-P``), which
+compute on the host whatever ``--device`` says; an ElGamal party prints
+which EC group law it ran (the native library or pure Python) after its
+run. As in the JAX package,
 ``NHPSI_RING_DIM`` and ``NHPSI_NUM_LIMBS`` in the environment override the
 ring dimension and the limb count after the flags are parsed.
 """
@@ -21,7 +24,11 @@ import os
 import sys
 
 from nested_hashing_psi_tpu_torch.config import build_arg_parser, params_from_args
-from nested_hashing_psi_tpu_torch.protocol.runner import run_client_tcp, run_server_tcp
+from nested_hashing_psi_tpu_torch.protocol.runner import (
+    protocol_name,
+    run_client_tcp,
+    run_server_tcp,
+)
 
 
 def parse_args(argv):
@@ -47,9 +54,13 @@ def main(argv=None):
     role = argv.pop(0)
     psi, ht, device = parse_args(argv)
     if role == "server":
-        run_server_tcp(psi, ht, device=device)
-        return 0
-    _, ok = run_client_tcp(psi, ht, device=device)
+        party, ok = run_server_tcp(psi, ht, device=device), True
+    else:
+        party, ok = run_client_tcp(psi, ht, device=device)
+    if protocol_name(psi).endswith("ElGamal"):
+        group = party.enc.group
+        law = "native" if group._native is not None else "pure Python"
+        print(f"EC group law: {law} ({group.name})")
     return 0 if ok else 1
 
 

@@ -1,8 +1,10 @@
 """Protocol runners: in-process (threads + loopback channel) and TCP mains.
 
-Counterpart of ``nested_hashing_psi_tpu.protocol.runner`` for the ported
-protocols, BatchedFHE (``-F --batched``) and SimpleFHE (``-F``), each under
-BFV or ``--bgv``. Both parties compute on ``device``.
+Counterpart of ``nested_hashing_psi_tpu.protocol.runner`` for every
+protocol of the JAX package: BatchedFHE (``-F --batched``) and SimpleFHE
+(``-F``), each under BFV or ``--bgv``, on ``device``; SimpleElGamal (no
+``-F``, the default) and PrecompElGamal (``-P``), whose parties take
+``device`` too but compute on the host, as in the JAX package.
 The in-process loopback channel serializes every frame to bytes, as TCP
 does, so what crosses it is exactly the wire format.
 """
@@ -18,6 +20,12 @@ from nested_hashing_psi_tpu_torch.protocol.batched_fhe import (
     BatchedFHEPSIClient,
     BatchedFHEPSIServer,
     resolve_device,
+)
+from nested_hashing_psi_tpu_torch.protocol.elgamal import (
+    PrecompElGamalPSIClient,
+    PrecompElGamalPSIServer,
+    SimpleElGamalPSIClient,
+    SimpleElGamalPSIServer,
 )
 from nested_hashing_psi_tpu_torch.protocol.simple_fhe import (
     SimpleFHEPSIClient,
@@ -37,8 +45,10 @@ def make_protocol_pair(name: str):
         return BatchedFHEPSIClient, BatchedFHEPSIServer
     if name == "SimpleFHE":
         return SimpleFHEPSIClient, SimpleFHEPSIServer
-    if name in ("SimpleElGamal", "PrecompElGamal"):
-        raise NotImplementedError(f"protocol {name} is not ported yet")
+    if name == "SimpleElGamal":
+        return SimpleElGamalPSIClient, SimpleElGamalPSIServer
+    if name == "PrecompElGamal":
+        return PrecompElGamalPSIClient, PrecompElGamalPSIServer
     raise ValueError(f"unknown protocol {name}")
 
 

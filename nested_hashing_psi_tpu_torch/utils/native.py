@@ -6,13 +6,17 @@ with the same behaviour: the port imports nothing of the JAX package. The
 source is the repository's ``native/nhpsi_native.cpp``; it is compiled with
 g++ on first use into ``build/nhpsi_torch/`` (ignored by git), apart from
 the JAX package's build, and every caller has a pure-Python fallback, so a
-missing toolchain degrades performance, not capability.
+missing toolchain degrades performance, not capability. The built file's
+name carries a hash of the source, the compiler command and the host CPU,
+so a library built on another host (``-march=native``) is never loaded.
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
+import platform
 import subprocess
 import threading
 
@@ -29,6 +33,54 @@ _tried = False
 _U64P = ctypes.POINTER(ctypes.c_uint64)
 
 
+_CXX = ["g++", "-O3", "-march=native", "-shared", "-fPIC"]
+
+
+def _host_cpu() -> str:
+    """The host CPU's model and feature flags (``/proc/cpuinfo``'s first
+    processor), or what ``platform`` knows where that file is missing."""
+    try:
+        with open("/proc/cpuinfo") as f:
+            info = f.read().split("\n\n")[0]
+    except OSError:
+        return f"{platform.machine()} {platform.processor()}"
+    keep = ("vendor_id", "cpu family", "model", "model name", "flags", "Features",
+            "CPU implementer", "CPU part")
+    return "\n".join(line for line in info.splitlines()
+                     if line.split(":")[0].strip() in keep)
+
+
+def built_path(src: str, so: str) -> str:
+    """``so`` with a hash of ``src``'s bytes, the compiler command and the
+    host CPU before its suffix: ``build/.../libx.so`` -> ``.../libx.<hash>.so``."""
+    h = hashlib.sha256()
+    with open(src, "rb") as f:
+        h.update(f.read())
+    h.update(" ".join(_CXX).encode())
+    h.update(_host_cpu().encode())
+    stem, ext = os.path.splitext(so)
+    return f"{stem}.{h.hexdigest()[:16]}{ext}"
+
+
+def build_and_load(src: str, so: str) -> ctypes.CDLL:
+    """Compile ``src`` with g++ into ``built_path(src, so)`` unless that
+    file exists, then load it. The build writes a temporary file and
+    renames it into place, so concurrent builds (test workers, processes)
+    never load half a file. Raises OSError or CalledProcessError when it
+    cannot."""
+    target = built_path(src, so)
+    if not os.path.exists(target):
+        os.makedirs(os.path.dirname(target), exist_ok=True)
+        tmp = f"{target}.{os.getpid()}.{threading.get_ident()}.tmp"
+        try:
+            subprocess.run(_CXX + [src, "-o", tmp], check=True, capture_output=True)
+            os.replace(tmp, target)  # atomic
+        finally:
+            if os.path.exists(tmp):
+                os.remove(tmp)
+    return ctypes.CDLL(target)
+
+
 def get_lib():
     """Returns the loaded library or None if unavailable."""
     global _lib, _tried
@@ -37,16 +89,7 @@ def get_lib():
             return _lib
         _tried = True
         try:
-            if not os.path.exists(_SO) or os.path.getmtime(_SO) < os.path.getmtime(_SRC):
-                os.makedirs(os.path.dirname(_SO), exist_ok=True)
-                tmp = f"{_SO}.{os.getpid()}.tmp"
-                subprocess.run(
-                    ["g++", "-O3", "-march=native", "-shared", "-fPIC", _SRC, "-o", tmp],
-                    check=True,
-                    capture_output=True,
-                )
-                os.replace(tmp, _SO)  # atomic: concurrent builders never see half a file
-            lib = ctypes.CDLL(_SO)
+            lib = build_and_load(_SRC, _SO)
             lib.ntt_mod_t.restype = ctypes.c_int
             lib.ntt_mod_t.argtypes = [
                 _U64P, ctypes.c_int64, ctypes.c_int64, ctypes.c_uint64,

@@ -100,17 +100,42 @@ SMALL_HT = dict(each_simple_table_size=32, each_cuckoo_table_size=12,
                 max_items_per_position=4)
 
 
-@pytest.mark.parametrize("flags_say", ["BatchedFHE", "SimpleElGamal"])
-def test_run_in_process_data_factory_and_protocol(capsys, flags_say):
+# the ElGamal runs' small geometry (tests/test_elgamal.py's)
+ELGAMAL = dict(server_set_size=60, client_set_size=4, intersection_set_size=2,
+               curve_name="P-192")
+ELGAMAL_HT = dict(SMALL_HT, each_simple_table_size=8, each_cuckoo_table_size=6,
+                  max_items_per_position=3)
+
+
+@pytest.fixture
+def jax_pure_python_ec(monkeypatch):
+    """JAX ElGamal parties use the pure-Python group law (no in-place build
+    of the JAX package's native library)."""
+    from nested_hashing_psi_tpu.utils import native_ec, native_ec2m
+
+    monkeypatch.setattr(native_ec, "for_curve", lambda *a, **k: None)
+    monkeypatch.setattr(native_ec2m, "for_curve", lambda *a, **k: None)
+
+
+@pytest.mark.parametrize("flags_say,forced", [("BatchedFHE", "BatchedFHE"),
+                                              ("SimpleElGamal", "BatchedFHE"),
+                                              ("BatchedFHE", "PrecompElGamal")],
+                         ids=["BatchedFHE", "SimpleElGamal", "forced_PrecompElGamal"])
+def test_run_in_process_data_factory_and_protocol(capsys, jax_pure_python_ec, flags_say,
+                                                  forced):
     """A FixedDataInput set through both runners with the protocol forced to
-    BatchedFHE (the flags choose it too, or choose SimpleElGamal): both
-    verify and find the same intersection, the fixed set's."""
+    BatchedFHE (the flags choose it too, or choose SimpleElGamal) or to
+    PrecompElGamal (the flags choose BatchedFHE): both verify and find the
+    same intersection, the fixed set's."""
     psi = dict(SMALL, fhe=flags_say == "BatchedFHE")
+    ht = SMALL_HT
+    if forced == "PrecompElGamal":
+        psi, ht = dict(psi, **ELGAMAL), ELGAMAL_HT
     sizes = (psi["server_set_size"], psi["client_set_size"], psi["intersection_set_size"], 16)
-    t_client, _, t_ok = t_run(TPSI(**psi), THT(**SMALL_HT), data_factory=lambda: TFixed(*sizes),
-                              protocol="BatchedFHE", device="cpu")
-    j_client, _, j_ok = j_run(JPSI(**psi), JHT(**SMALL_HT), data_factory=lambda: JFixed(*sizes),
-                              protocol="BatchedFHE")
+    t_client, _, t_ok = t_run(TPSI(**psi), THT(**ht), data_factory=lambda: TFixed(*sizes),
+                              protocol=forced, device="cpu")
+    j_client, _, j_ok = j_run(JPSI(**psi), JHT(**ht), data_factory=lambda: JFixed(*sizes),
+                              protocol=forced)
     assert t_ok and j_ok
     assert capsys.readouterr().out.count("Set matches!") == 2
     found = sorted(map(tuple, t_client.intersection_calculated))
@@ -118,8 +143,12 @@ def test_run_in_process_data_factory_and_protocol(capsys, flags_say):
     assert found == sorted(map(tuple, TFixed(*sizes).get_intersection_set().tolist()))
 
 
-def test_run_in_process_forced_elgamal_raises():
-    with pytest.raises(NotImplementedError, match="PrecompElGamal"):
-        t_run(TPSI(**SMALL), THT(**SMALL_HT), protocol="PrecompElGamal", device="cpu")
+def test_run_in_process_forced_elgamal_raises(capsys):
+    """A forced PrecompElGamal runs to a verified result (the flags choose
+    BatchedFHE); an unknown protocol name raises."""
+    client, _, ok = t_run(TPSI(**dict(SMALL, **ELGAMAL)), THT(**ELGAMAL_HT),
+                          protocol="PrecompElGamal", device="cpu")
+    assert ok and client.protocol_name == "PrecompP-192"
+    assert "Set matches!" in capsys.readouterr().out
     with pytest.raises(ValueError, match="unknown protocol"):
         t_run(TPSI(**SMALL), THT(**SMALL_HT), protocol="NoSuchPSI", device="cpu")

@@ -685,3 +685,24 @@ def test_probe_k1_line_holds_k1_against_plain(cuda):
     ps, _, x = bench_ntt_lazy_probe.inputs(1 << 12, 2, 5, cuda)
     err, ms = bench_ntt_lazy_probe.k1_line(x, ps, cuda, 2)
     assert err == 0 and ms > 0
+
+
+@pytest.mark.parametrize("precomp", [False, True], ids=["SimpleElGamal", "PrecompElGamal"])
+def test_elgamal_runner_on_cuda_verifies(cuda, capsys, precomp):
+    """device="cuda" resolves the card; the ElGamal parties compute on the
+    host and launch no kernel."""
+    from nested_hashing_psi_tpu_torch.config import HashTableParams, PSIParams
+    from nested_hashing_psi_tpu_torch.protocol.runner import run_in_process
+
+    ntt_cuda.reset_launches()
+    pie_kernels.reset_launches()
+    psi = PSIParams(server_set_size=60, client_set_size=4, intersection_set_size=2,
+                    bit_size=16, curve_name="P-192", precomp=precomp)
+    ht = HashTableParams(each_simple_table_size=8, each_cuckoo_table_size=6,
+                         n_simple_hash_functions=2, n_cuckoo_hash_functions=2,
+                         max_items_per_position=3)
+    client, server, ok = run_in_process(psi, ht, device="cuda")
+    assert ok and "Set matches!" in capsys.readouterr().out
+    assert len(client.intersection_calculated) == 2
+    assert client.device.type == server.device.type == "cuda"
+    assert ntt_cuda.launches["ntt"] + ntt_cuda.launches["intt"] + pie_kernels.launches == 0

@@ -146,3 +146,29 @@ def test_main_cuda_without_gpu_raises():
         pytest.skip("a GPU is present: the cuda run is the card's (chip_smoke.py)")
     with pytest.raises(RuntimeError, match="needs a GPU"):
         t_vpu.main([])
+
+
+def test_bound_counts_the_busier_pipe():
+    """A1's bound: each mix's busier 64-lane pipe, a wide or high product
+    two FMA-pipe slots, an FP32 instruction half; a mix balanced over both
+    pipes has half the bound of one on a single pipe."""
+    from nested_hashing_psi_tpu_torch.benchmarks import common
+
+    slots = {op: common.fma_pipe_slots(op) for op in
+             ("IMAD.WIDE.U32", "IMAD.HI.U32", "IMAD", "IMAD.IADD", "IMUL", "FMUL", "FFMA.FTZ")}
+    assert slots == {"IMAD.WIDE.U32": 2, "IMAD.HI.U32": 2, "IMAD": 1, "IMAD.IADD": 1,
+                     "IMUL": 1, "FMUL": 0.5, "FFMA.FTZ": 0.5}
+    body = [(0, "IMAD.HI.U32", ""), (16, "IMAD", ""), (32, "IADD3", ""), (48, "VIMNMX", ""),
+            (64, "VIADD", ""), (80, "LDG.E", ""), (96, "BRA", "")]
+    s = common.by_pipe(body, 2)
+    assert (s["fma"], s["fma_slots"], s["alu"], s["arith"], s["memory"]) == (1.5, 2, 1, 2.5, 0.5)
+    assert t_vpu.ops_per_app(s) == 2
+    one_pipe = {"fma_slots": 0.0, "alu": 2.0}
+    balanced = {"fma_slots": 1.0, "alu": 1.0}
+    elems = 64 * 128 * 128
+    t_one, by = t_vpu.bound_ms(elems, 1 << 15, one_pipe)
+    assert by == "operations"
+    assert t_one == 2 * t_vpu.bound_ms(elems, 1 << 15, balanced)[0]
+    assert abs(t_one - elems * (1 << 15) * 2 / (64 * 132 * 1.98e9) * 1e3) < 1e-9
+    # at K = 64 on the probe's shape a one-instruction mix is bound by bytes
+    assert t_vpu.bound_ms(elems, 64, {"fma_slots": 0.0, "alu": 0.5})[1] == "bytes"

@@ -219,10 +219,19 @@ def test_mixed_jax_and_port_bgv_and_simple_fhe(capsys, direction, case):
     assert len(client.intersection_calculated) == psi.intersection_set_size
 
 
+ELGAMAL_SMALL = dict(fhe=False, server_set_size=60, client_set_size=4,
+                     intersection_set_size=2, curve_name="P-192")
+ELGAMAL_HT = dict(each_simple_table_size=8, each_cuckoo_table_size=6,
+                  max_items_per_position=3)
+
+
 def test_port_slice_runs_without_jax():
     """A fresh interpreter imports the port, runs its small CPU slice
-    (BatchedFHE under BFV and --bgv, SimpleFHE), and never loads jax."""
-    runs = [(small_params(), small_ht()), _case("bgv16_leveled"), _case("simple_bfv")]
+    (BatchedFHE under BFV and --bgv, SimpleFHE, SimpleElGamal and
+    PrecompElGamal), and never loads jax, the JAX package or cryptography."""
+    runs = [(small_params(), small_ht()), _case("bgv16_leveled"), _case("simple_bfv"),
+            (small_params(**ELGAMAL_SMALL), small_ht(**ELGAMAL_HT)),
+            (small_params(**ELGAMAL_SMALL, precomp=True), small_ht(**ELGAMAL_HT))]
     code = (
         "import sys\n"
         "from nested_hashing_psi_tpu_torch.config import HashTableParams, PSIParams\n"
@@ -234,6 +243,7 @@ def test_port_slice_runs_without_jax():
         "    assert ok\n"
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n"
         "assert 'nested_hashing_psi_tpu' not in sys.modules\n"
+        "assert 'cryptography' not in sys.modules\n"
         "print('NO_JAX_OK')\n"
     )
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
@@ -252,12 +262,15 @@ def test_cuda_device_without_gpu_raises():
         cli.main(["client", "-F", "--batched", "--port", "1"])
 
 
-def test_unported_options_raise():
-    """SimpleElGamal and PrecompElGamal (no -F) are not ported."""
-    with pytest.raises(NotImplementedError, match="PrecompElGamal"):
-        run_in_process(small_params(fhe=False, precomp=True), small_ht(), device="cpu")
-    with pytest.raises(NotImplementedError, match="SimpleElGamal"):
-        run_in_process(small_params(fhe=False), small_ht(), device="cpu")
+def test_unported_options_raise(capsys):
+    """No option is left unported: the flags without -F choose SimpleElGamal,
+    and with -P PrecompElGamal, and both verify in the port."""
+    for precomp, name in ((True, "PrecompP-192"), (False, "SimpleP-192")):
+        client, _, ok = run_in_process(small_params(**ELGAMAL_SMALL, precomp=precomp),
+                                       small_ht(**ELGAMAL_HT), device="cpu")
+        assert ok and client.protocol_name == name
+        assert len(client.intersection_calculated) == 2
+    assert capsys.readouterr().out.count("Set matches!") == 2
 
 
 def test_cli_two_processes_over_tcp():
