@@ -51,7 +51,17 @@
    pos_chunk = 3, timing each; then traces one streamed query (4 chunks)
    and one host-table query (4 slices): K2 adds each chunk's or slice's sum
    to the running sum and reads the position-major slices in place, so
-   each must launch 4 K2 kernels and no add or transpose of its own;
+   each must launch 4 K2 kernels and no add or transpose of its own.
+   [checkpoint]: the one-query server's PIE and its client sidecar are
+   saved (bench_e2e_psi.save_artifact, the v3 checkpoint) and resumed by
+   ``python -m ...bench_e2e_psi --resume`` in a fresh process, with jax
+   and the JAX package made unimportable: it must print "Set matches!"
+   with 1024 found, launch K1 and K2 (counted in that process) and write a
+   result bit-equal with this process's pie.run on the same query; the
+   host-resident PIE is saved and resumed here, and must stay
+   host-resident, position-major and pinned and answer bit-equal with the
+   device table. Save and load seconds and file sizes are printed; the
+   resumed runs' launches add into the kernel line;
 6. drives three more paths the same way: ``--bgv`` at the main geometry
    (flat BGV, L = 9; 1024 found, the client decrypts on the host), ``--bgv
    -B 16`` leveled on the main geometry's table with a 4096-item server
@@ -84,6 +94,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -549,6 +560,111 @@ def elgamal_phase(cli, run_in_process, reset_counts, read_counts, smi_line: str)
         out[label] = times
     out["phase_s"] = time.perf_counter() - t_phase
     print(f"[elgamal] phase {out['phase_s']:.2f} s", flush=True)
+    return out
+
+
+def fresh_resume(artifact: str, workdir: str) -> tuple[dict, "np.ndarray", float]:
+    """``python -m ...bench_e2e_psi --resume artifact`` in a fresh process on
+    the GPU, with jax and the JAX package made unimportable (stubs that
+    raise shadow them). Fails unless it exits 0 and prints "Set matches!"
+    with EXPECTED_FOUND found. -> (its printed times and kernel launches,
+    its result array, the process's wall seconds)."""
+    import numpy as np
+
+    stub = os.path.join(workdir, "stub")
+    for mod in ("jax", "nested_hashing_psi_tpu"):
+        os.makedirs(os.path.join(stub, mod), exist_ok=True)
+        with open(os.path.join(stub, mod, "__init__.py"), "w") as f:
+            f.write(f"raise ImportError('the resume must not import {mod}')\n")
+    result = os.path.join(workdir, "resumed_result.npy")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([stub, ROOT]))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "nested_hashing_psi_tpu_torch.benchmarks.bench_e2e_psi",
+         "--resume", artifact, "--device", "cuda", "--resultOut", result],
+        cwd=workdir, env=env, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    for line in proc.stdout.splitlines():
+        print(f"[checkpoint] fresh process: {line}", flush=True)
+    if (proc.returncode != 0 or "RESUME RESULT: Set matches!" not in proc.stdout
+            or f"|intersection| {EXPECTED_FOUND})" not in proc.stdout):
+        fail(f"[checkpoint] the fresh-process resume did not verify (rc {proc.returncode}):\n"
+             f"{proc.stdout[-2000:]}{proc.stderr[-3000:]}")
+    m = re.search(r"load ([0-9.]+)s, online query ([0-9.]+)s, decrypt ([0-9.]+)s", proc.stdout)
+    info = {"load_s": float(m.group(1)), "query_s": float(m.group(2)),
+            "decrypt_s": float(m.group(3)),
+            "launches": json.loads(proc.stdout.split("kernel launches ", 1)[1].splitlines()[0])}
+    return info, np.load(result), wall
+
+
+def checkpoint_phase(server, client, pie_host, want, launches: dict, smi_line: str) -> dict:
+    """[checkpoint]: save the one-query server's PIE and its client sidecar
+    (bench_e2e_psi.save_artifact), resume them in a fresh process that must
+    verify with EXPECTED_FOUND found, launch K1 and K2 and answer bit-equal
+    with this process's pie.run; then save phase 5's host-resident PIE,
+    resume it here, and check that it stayed host-resident, position-major
+    and pinned, and that run() is bit-equal with the device table's result
+    ``want``. Adds the resumed runs' launches to ``launches``."""
+    import numpy as np
+    import torch
+
+    from nested_hashing_psi_tpu_torch.benchmarks.bench_e2e_psi import save_artifact
+    from nested_hashing_psi_tpu_torch.convert import to_numpy
+    from nested_hashing_psi_tpu_torch.ops import ntt_cuda, pie_kernels
+    from nested_hashing_psi_tpu_torch.utils.checkpoint import load_batched_pie, save_batched_pie
+
+    out = {}
+    with tempfile.TemporaryDirectory() as d:
+        art = os.path.join(d, "main_row.npz")
+        out["save_s"], out["bytes"], out["sidecar_bytes"] = save_artifact(art, server, client)
+        built = to_numpy(server.pie.run(client.idx_ct, client.minus_ct).data)
+        info, resumed, out["fresh_process_s"] = fresh_resume(art, d)
+        out.update({f"fresh_{k}": v for k, v in info.items()})
+        if resumed.dtype != built.dtype or not np.array_equal(resumed, built):
+            fail(f"[checkpoint] the fresh process's result {resumed.shape}/{resumed.dtype} differs "
+                 f"from the building process's {built.shape}/{built.dtype}")
+        if min(info["launches"].values()) <= 0:
+            fail(f"[checkpoint] the fresh-process resume did not launch K1 and K2: "
+                 f"{info['launches']}")
+        for k, v in info["launches"].items():
+            launches[k] += v
+
+        host_art = os.path.join(d, "main_row_host.npz")
+        t0 = time.perf_counter()
+        save_batched_pie(host_art, pie_host)
+        out["host_save_s"] = time.perf_counter() - t0
+        out["host_bytes"] = os.path.getsize(host_art)
+        t0 = time.perf_counter()
+        rh = load_batched_pie(host_art, device="cuda")
+        out["host_load_s"] = time.perf_counter() - t0
+        if not (rh.host_table and rh.table_pt.is_pinned() and rh._host_positions().is_contiguous()
+                and rh.table_pt.device.type == "cpu"):
+            fail(f"[checkpoint] the host-resident artifact resumed with host_table="
+                 f"{rh.host_table}, pinned {rh.table_pt.is_pinned()}, position-major "
+                 f"{rh._host_positions().is_contiguous()}, on {rh.table_pt.device}")
+        ntt_cuda.reset_launches()
+        pie_kernels.reset_launches()
+        got = rh.run(client.idx_ct, client.minus_ct).data
+        torch.cuda.synchronize()
+        host_launched = {"ntt_fwd": ntt_cuda.launches["ntt"],
+                         "ntt_inv": ntt_cuda.launches["intt"], "pie_ip": pie_kernels.launches}
+        if not torch.equal(got, want):
+            fail("[checkpoint] the resumed host-resident PIE's run() differs from the device "
+                 "table's")
+        if min(host_launched.values()) <= 0:
+            fail(f"[checkpoint] the resumed host-resident run did not launch K1 and K2: "
+                 f"{host_launched}")
+        for k, v in host_launched.items():
+            launches[k] += v
+        out["host_launches"] = host_launched
+    print(f"[checkpoint] main row: artifact {out['bytes']} B + sidecar {out['sidecar_bytes']} B, "
+          f"saved in {out['save_s']:.3f} s; fresh process {out['fresh_process_s']:.2f} s wall "
+          f"(load {info['load_s']:.3f} s, query {info['query_s']:.3f} s, decrypt "
+          f"{info['decrypt_s']:.3f} s), Set matches! with {EXPECTED_FOUND} found, launches "
+          f"{info['launches']}, result bit-equal with this process's | host-resident artifact "
+          f"{out['host_bytes']} B: save {out['host_save_s']:.3f} s, load {out['host_load_s']:.3f} "
+          f"s, resumed host-resident, position-major, pinned, run() bit-equal, launches "
+          f"{host_launched} | host CPU {host_cpu()} | card {smi_line}", flush=True)
     return out
 
 
@@ -1022,6 +1138,8 @@ def main() -> None:
     for label, tr in k2_paths.items():
         if round(tr["K2_launches_per_query"]) != 4:
             fail(f"{label}: {tr['K2_launches_per_query']} K2 kernels per query, expected 4")
+    # ---- the offline artifact: saved, resumed in a fresh process ---------
+    checkpoint_times = checkpoint_phase(server, client, pie_host, want, launches, smi_line)
     del pie_dev, pie_host
     torch.cuda.empty_cache()
     # ---- --bgv (flat, then leveled) and SimpleFHE -----------------------
@@ -1170,6 +1288,7 @@ def main() -> None:
                                stages_over_full=anat["stages"]["ms"] / anat["k1_ms"],
                                moves_over_full=anat["moves"]["ms"] / anat["k1_ms"]))
     print(f"[elgamal] times {json.dumps(elgamal_times)}", flush=True)
+    print(f"[checkpoint] times {json.dumps(checkpoint_times)}", flush=True)
     print(smi_line)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -39,11 +39,16 @@ def parse_args(argv):
                     help="torch device both phases compute on (default cuda)")
     args = ap.parse_args(argv)
     psi, ht = params_from_args(args)
+    return env_overrides(psi), ht, args.device
+
+
+def env_overrides(psi):
+    """psi with NHPSI_RING_DIM / NHPSI_NUM_LIMBS from the environment applied."""
     if os.environ.get("NHPSI_RING_DIM"):
         psi = dataclasses.replace(psi, ring_dim=int(os.environ["NHPSI_RING_DIM"]))
     if os.environ.get("NHPSI_NUM_LIMBS"):
         psi = dataclasses.replace(psi, num_limbs=int(os.environ["NHPSI_NUM_LIMBS"]))
-    return psi, ht, args.device
+    return psi
 
 
 def main(argv=None):

@@ -148,7 +148,10 @@ class BatchedFHEPIE(nn.Module):
     position-major, (P, H, D, L, N), so that every slice of positions is one
     contiguous block (an asynchronous copy of a strided slice is neither
     asynchronous nor from pinned memory); ``table_pt`` is the (H, D, P, L, N)
-    view of it.
+    view of it (``logical_table``).
+
+    ``from_artifact`` rebuilds a runnable PIE from its offline products, as
+    a checkpoint resume does (``utils.checkpoint``).
 
     ``leveled=True`` (BGV, t < 2^31) runs the cross-hash chain with one limb
     dropped per multiplication. ``mul_limbs`` (BFV): None takes the rescaled
@@ -172,22 +175,11 @@ class BatchedFHEPIE(nn.Module):
             raise ValueError("batched FHE PIE does not support a stash")
         if not (hct.simple_multi_table and hct.cuckoo_multi_table):
             raise ValueError("batched FHE PIE does not support combined tables")
-        self.ctx = ctx
-        self.H = hct.n_cuckoo_hash_functions
-        if leveled:
-            assert ctx.default_form == "bgv" and ctx.t < 2**31, (
-                "leveled PIE requires BGV with t < 2^31"
-            )
-            assert ctx.L - (self.H - 1) >= 2, "not enough limbs for the chain"
-            # the drop-limb chain's contexts exist before the first query
-            ctx.context_for_limbs(ctx.L - (self.H - 1))
-        self.leveled = leveled
-        self._setup_mul_limbs(mul_limbs, ship_limbs)
-        self.D = hct.max_items_per_position
-        self.P = hct.each_cuckoo_table_size
-        self.batch_slots = hct.n_simple_tables * hct.each_simple_table_size
-        self.register_buffer("rlk_b", rlk.b_mont)
-        self.register_buffer("rlk_a", rlk.a_mont)
+        self._setup(
+            ctx, rlk, hct.n_cuckoo_hash_functions, hct.max_items_per_position,
+            hct.each_cuckoo_table_size, hct.n_simple_tables * hct.each_simple_table_size,
+            leveled, mul_limbs, ship_limbs, host_table,
+        )
 
         rng = np.random.Generator(
             np.random.Philox(
@@ -219,12 +211,8 @@ class BatchedFHEPIE(nn.Module):
         # packed encode on the host in bounded slabs; each slab's NTT is K1
         flat = slots.reshape(self.H * self.D * self.P, self.batch_slots)
         DP = self.D * self.P
-        self.host_table = host_table
         if host_table:
-            host = torch.empty(
-                (self.P, self.H * self.D, ctx.L, ctx.n), dtype=torch.int32,
-                pin_memory=ctx.device.type == "cuda",
-            )
+            host = _position_major_storage(self.H, self.D, self.P, ctx)
         slabs = []
         for s in range(0, flat.shape[0], encode_slab):
             chunk = flat[s : s + encode_slab].astype(object)
@@ -238,13 +226,62 @@ class BatchedFHEPIE(nn.Module):
             else:
                 slabs.append(pt)
         if host_table:
-            pt = host.view(self.P, self.H, self.D, ctx.L, ctx.n).permute(1, 2, 0, 3, 4)
+            pt = _logical_view(host, self.H, self.D)
         else:
             pt = (slabs[0] if len(slabs) == 1 else torch.cat(slabs, dim=0)).reshape(
                 self.H, self.D, self.P, ctx.L, ctx.n
             )
         self.register_buffer("table_pt", pt)
+
+    def _setup(self, ctx, rlk, H, D, P, batch_slots, leveled, mul_limbs, ship_limbs,
+               host_table) -> None:
+        """Everything but the table and masks, shared by the build and
+        ``from_artifact``: the geometry, the relin key buffers, the leveled
+        chain's and the rescaled pipeline's child contexts (built before the
+        first query) and the host table's copy stream."""
+        self.ctx = ctx
+        self.H = H
+        if leveled:
+            assert ctx.default_form == "bgv" and ctx.t < 2**31, (
+                "leveled PIE requires BGV with t < 2^31"
+            )
+            assert ctx.L - (H - 1) >= 2, "not enough limbs for the chain"
+            ctx.context_for_limbs(ctx.L - (H - 1))
+        self.leveled = leveled
+        self._setup_mul_limbs(mul_limbs, ship_limbs)
+        self.D, self.P, self.batch_slots = D, P, batch_slots
+        self.host_table = host_table
+        self.register_buffer("rlk_b", rlk.b_mont)
+        self.register_buffer("rlk_a", rlk.a_mont)
         self._copy_stream = None
+
+    @classmethod
+    def from_artifact(
+        cls, ctx: BGVContext, rlk: RelinKey, table_pt: torch.Tensor, mask_pt: torch.Tensor,
+        H: int, D: int, P: int, batch_slots: int, leveled: bool = False,
+        mul_limbs: int | None = None, ship_limbs: int | None = None,
+        host_table: bool = False,
+    ) -> "BatchedFHEPIE":
+        """A runnable PIE from its offline products without the hash table
+        (checkpoint resume, ``utils.checkpoint``): ``table_pt`` is the
+        logical (H, D, P, L, N) int32 table, ``mask_pt`` the (D, L, N)
+        masks, both on any device. The table goes to the context's device,
+        or with ``host_table`` into the position-major host storage
+        (pinned when the context is on a GPU). ``mul_limbs`` and
+        ``ship_limbs`` as in the constructor: 0 keeps the flat product."""
+        pie = cls.__new__(cls)
+        nn.Module.__init__(pie)
+        pie._setup(ctx, rlk, H, D, P, batch_slots, leveled, mul_limbs, ship_limbs, host_table)
+        if tuple(table_pt.shape) != (H, D, P, ctx.L, ctx.n):
+            raise ValueError(f"table {tuple(table_pt.shape)} is not (H, D, P, L, N) = "
+                             f"{(H, D, P, ctx.L, ctx.n)}")
+        if host_table:
+            host = _position_major_storage(H, D, P, ctx)
+            host.view(P, H, D, ctx.L, ctx.n).copy_(table_pt.permute(2, 0, 1, 3, 4))
+            table_pt = _logical_view(host, H, D)
+        pie.register_buffer("table_pt", table_pt if host_table else table_pt.to(ctx.device))
+        pie.register_buffer("mask_pt", mask_pt.to(ctx.device))
+        return pie
 
     @property
     def rlk(self) -> RelinKey:
@@ -292,6 +329,12 @@ class BatchedFHEPIE(nn.Module):
             self.ctx, self.rlk, ip, minus_data, self.mask_pt, leveled=self.leveled,
             mul_limbs=self.mul_limbs, ship_limbs=self.ship_limbs,
         )
+
+    def logical_table(self) -> torch.Tensor:
+        """The packed table as its logical (H, D, P, L, N) tensor, the layout
+        a checkpoint stores: the device buffer, or for a host-resident PIE
+        the permuted view of its position-major storage (not a copy)."""
+        return self.table_pt
 
     def _host_positions(self) -> torch.Tensor:
         """The host table as the contiguous (P, H, D, L, N) tensor it is."""
@@ -382,6 +425,19 @@ class BatchedFHEPIE(nn.Module):
         return torch.stack(
             [self(i, m).data for i, m in zip(index_batch, minus_batch)]
         )
+
+
+def _position_major_storage(H: int, D: int, P: int, ctx: BGVContext) -> torch.Tensor:
+    """Empty host storage of a host-resident table, position-major
+    (P, H*D, L, N) int32, pinned when the context is on a GPU."""
+    return torch.empty((P, H * D, ctx.L, ctx.n), dtype=torch.int32,
+                       pin_memory=ctx.device.type == "cuda")
+
+
+def _logical_view(host: torch.Tensor, H: int, D: int) -> torch.Tensor:
+    """The (H, D, P, L, N) view of position-major host storage."""
+    P, _, L, n = host.shape
+    return host.view(P, H, D, L, n).permute(1, 2, 0, 3, 4)
 
 
 @dataclass

@@ -100,6 +100,24 @@ def _scheme_params(psi: PSIParams, ht: HashTableParams) -> SchemeParams:
     return sp
 
 
+def result_zero_mask(ctx, result: Ciphertext, sk, length: int,
+                     decryptors: dict) -> tuple[np.ndarray, float | None]:
+    """A result's per-slot zero mask (..., D, length), decrypted in the
+    context of its limb count: a BFV result on a GPU on the device
+    (``DeviceDecryptor``, kept in ``decryptors`` by limb count; no noise
+    estimate), a BGV result, or any on the CPU, on the host.
+    -> (mask, noise bits or None)."""
+    n_limbs = result.data.shape[-2]
+    dctx = ctx.context_for_limbs(n_limbs)
+    dsk = ctx.shrink_key_to(sk, n_limbs)
+    if ctx.device.type == "cuda" and result.form == "bfv":
+        if n_limbs not in decryptors:
+            decryptors[n_limbs] = DeviceDecryptor(dctx)
+        return decryptors[n_limbs].zero_mask(result.data, dsk.s_mont, length).cpu().numpy(), None
+    slots, noise = dctx.decrypt(result, dsk, length=length)
+    return np.asarray(slots, dtype=object) == 0, noise
+
+
 class BatchedFHEPSIClient(PSIClientBase):
     def __init__(self, data, params: PSIParams, ht: HashTableParams,
                  channel: Channel, device="cuda", **kw):
@@ -161,29 +179,19 @@ class BatchedFHEPSIClient(PSIClientBase):
 
     def _read_and_decrypt(self) -> np.ndarray:
         """Read the result frames and decrypt them to the per-slot zero mask
-        (..., D, batch), in the context of the result's limb count. A BFV
-        result on a GPU is decrypted on the device (noise_bits only with
-        --verbose, which adds the host decrypt); a BGV result, or any on the
-        CPU, on the host."""
+        (``result_zero_mask``); on the device decrypt, noise_bits only with
+        --verbose, which adds the host decrypt."""
         meta = self.channel.read_tensor()
         form = "bgv" if int(meta[0]) else "bfv"
         result = ciphertext_from_numpy(
             self.channel.read_tensor(), self.device, form, int(meta[1])
         )
-        n_limbs = result.data.shape[-2]
-        dctx = self.ctx.context_for_limbs(n_limbs)
-        dsk = self.ctx.shrink_key_to(self.sk, n_limbs)
         length = self.ht.batch_slots
-        if self.device.type == "cuda" and result.form == "bfv":
-            if n_limbs not in self._decryptors:
-                self._decryptors[n_limbs] = DeviceDecryptor(dctx)
-            mask = self._decryptors[n_limbs].zero_mask(result.data, dsk.s_mont, length)
-            self.noise_bits = None
-            if self.params.verbose:
-                _, self.noise_bits = dctx.decrypt(result, dsk, length=length)
-            return mask.cpu().numpy()
-        slots, self.noise_bits = dctx.decrypt(result, dsk, length=length)
-        return np.asarray(slots, dtype=object) == 0
+        mask, self.noise_bits = result_zero_mask(self.ctx, result, self.sk, length,
+                                                 self._decryptors)
+        if self.noise_bits is None and self.params.verbose:
+            _, self.noise_bits = self.ctx.decrypt(result, self.sk, length=length)
+        return mask
 
     def run_online_phase(self) -> None:
         if self.params.num_queries > 1:

@@ -52,7 +52,7 @@ def make_protocol_pair(name: str):
     raise ValueError(f"unknown protocol {name}")
 
 
-def _default_data(params: PSIParams) -> RandomDataInput:
+def default_data(params: PSIParams) -> RandomDataInput:
     return RandomDataInput(
         params.server_set_size,
         params.client_set_size,
@@ -60,6 +60,35 @@ def _default_data(params: PSIParams) -> RandomDataInput:
         params.item_seed,
         params.bit_size,
     )
+
+
+def run_parties(client_run, server_run, ch_server):
+    """Run server_run() in a thread and client_run() here, and return
+    client_run()'s result. A server exception poisons the server's channel
+    end, so the client's next read raises ConnectionError; the server's
+    exception is then raised in its place."""
+    errors: list[BaseException] = []
+
+    def server_thread():
+        try:
+            server_run()
+        except BaseException as e:  # propagate to the main thread
+            errors.append(e)
+            ch_server.poison()
+
+    th = threading.Thread(target=server_thread, daemon=True)
+    th.start()
+    try:
+        out = client_run()
+    except ConnectionError:
+        th.join(timeout=600)
+        if errors:
+            raise errors[0] from None
+        raise
+    th.join(timeout=600)
+    if errors:
+        raise errors[0]
+    return out
 
 
 def run_in_process(
@@ -79,7 +108,7 @@ def run_in_process(
     the client's verification.
     """
     client_cls, server_cls = make_protocol_pair(protocol or protocol_name(params))
-    factory = data_factory or (lambda: _default_data(params))
+    factory = data_factory or (lambda: default_data(params))
     device = resolve_device(device)
     ch_client, ch_server = LoopbackChannel.pair()
     client = client_cls(factory(), params, ht, ch_client,
@@ -87,28 +116,7 @@ def run_in_process(
     server = server_cls(factory(), params, ht, ch_server,
                         device=device, export_dir=export_dir)
 
-    errors: list[BaseException] = []
-
-    def server_run():
-        try:
-            server.run()
-        except BaseException as e:  # propagate to the main thread
-            errors.append(e)
-            # unblock the client: its next channel read raises
-            ch_server.poison()
-
-    th = threading.Thread(target=server_run, daemon=True)
-    th.start()
-    try:
-        ok = client.run()
-    except ConnectionError:
-        th.join(timeout=600)
-        if errors:
-            raise errors[0] from None
-        raise
-    th.join(timeout=600)
-    if errors:
-        raise errors[0]
+    ok = run_parties(client.run, server.run, ch_server)
     return client, server, ok
 
 
@@ -117,7 +125,7 @@ def run_client_tcp(params: PSIParams, ht: HashTableParams, data=None,
     client_cls, _ = make_protocol_pair(protocol_name(params))
     device = resolve_device(device)  # fail before waiting on the network
     channel = TCPChannel.connect(params.ip, params.port)
-    client = client_cls(data or _default_data(params), params, ht, channel,
+    client = client_cls(data or default_data(params), params, ht, channel,
                         device=device, **kw)
     ok = client.run()
     channel.close()
@@ -129,7 +137,7 @@ def run_server_tcp(params: PSIParams, ht: HashTableParams, data=None,
     _, server_cls = make_protocol_pair(protocol_name(params))
     device = resolve_device(device)
     channel = TCPChannel.listen(params.ip, params.port)
-    server = server_cls(data or _default_data(params), params, ht, channel,
+    server = server_cls(data or default_data(params), params, ht, channel,
                         device=device, **kw)
     server.run()
     channel.close()

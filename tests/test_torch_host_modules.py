@@ -300,6 +300,21 @@ _NO_JAX_SCRIPT = textwrap.dedent("""
         for probe in (bench_ntt_lazy_probe, bench_ntt_anatomy):
             probe.main(["--device", "cpu", "--n", "1024", "--limbs", "1", "--batch", "2",
                         "--iters", "1"])
+        import os, tempfile
+        from nested_hashing_psi_tpu_torch.benchmarks import bench_e2e_psi, profile_build
+        from nested_hashing_psi_tpu_torch.utils import checkpoint, profiling
+
+        os.environ["NHPSI_RING_DIM"] = "128"
+        with tempfile.TemporaryDirectory() as d:
+            art = os.path.join(d, "artifact")
+            row = ["--server-log2", "9", "--client-log2", "4", "--device", "cpu"]
+            assert bench_e2e_psi.main(row + ["--checkpoint", art, "--buildOnly"]) == 0
+            assert bench_e2e_psi.main(["--resume", art, "--device", "cpu"]) == 0
+            checkpoint.save_batched_pie(os.path.join(d, "again"),
+                                        checkpoint.load_batched_pie(art, device="cpu"))
+            with profiling.device_trace(os.path.join(d, "trace")):
+                profile_build.main(["11", "--simpleSize", "32", "--inner", "8",
+                                    "--device", "cpu"])
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith(("jax.", "nested_hashing_psi_tpu."))
                      or m == "nested_hashing_psi_tpu")
@@ -313,7 +328,9 @@ _NO_JAX_SCRIPT = textwrap.dedent("""
 
 def test_port_imports_nothing_of_jax_or_the_jax_package(tmp_path):
     """Every port module imported, a whole protocol run, a two-worker
-    parallel table build and the three probes' CPU runs, in a fresh interpreter where the JAX package
+    parallel table build, the three probes' CPU runs, the end-to-end bench's
+    --buildOnly and --resume (utils.checkpoint) and the build profiler under
+    utils.profiling's trace, in a fresh interpreter where the JAX package
     cannot be imported (a stub that raises shadows it, for the spawned
     workers too); afterwards neither it nor jax is in sys.modules."""
     stub = tmp_path / "stub" / "nested_hashing_psi_tpu"
@@ -329,3 +346,4 @@ def test_port_imports_nothing_of_jax_or_the_jax_package(tmp_path):
     assert "Set matches!" in res.stdout and "PORT_STANDS_ALONE" in res.stdout
     assert res.stdout.count("G applications/s") == 11
     assert "[ntt_lazy]" in res.stdout and "[ntt_anatomy]" in res.stdout
+    assert "RESUME RESULT: Set matches!" in res.stdout and "[profile_build] {" in res.stdout
