@@ -77,6 +77,18 @@
    these protocols on the host); prints each party's phase times, the
    server's compute times and the phase's seconds, as host timings beside
    the host CPU's model and the card's name and power limit.
+8. [parallel]: ``parallel/`` at full width on the rows above (main BFV,
+   flat --bgv, SimpleFHE): NCCL at world size 1 in this process (the dp x
+   tp and pipelined steps, the ring-sharded step at D = 1, the four-step
+   and ring-exchange NTTs at L = 6, n = 16384), then four rank processes
+   on the one card through gloo staged via host memory (dp x tp 2 x 2 BFV
+   and 4 x 1 flat BGV, ring-sharded D = 4 BFV and flat BGV, pipelined k = 4
+   BFV, SimpleFHE over 4 ranks, both NTTs). Every gathered result is held
+   bit-equal with the unsharded port on the card (full basis), the 2 x 2
+   BFV result decrypted on the device to 1024 found, and each rank must
+   launch K1 and K2 where its step runs them; per step it prints the ms
+   per query, the bytes each rank sent, the launches per rank and the
+   transport. The kernel line's ``parallel_launches`` sum both runs.
 
 The A1 probe's bound counts each mix's busier pipe (bench_vpu_ops.ops_per_app:
 64 lanes per clock per SM each, a wide product two FMA-pipe slots); the
@@ -376,6 +388,203 @@ def int8_products_ms(mplan, x, D: int) -> float:
         for (a, bt), o in zip(calls, outs):
             torch._int_mm(a, bt.t(), out=o)
     return graph_ms(run, iters=10)
+
+
+PAR_WORLD = 4          # ranks sharing the one card through the staged gloo transport
+PAR_TIMEOUT = 600.0    # s: the four ranks' start, their PIE builds and every case
+PAR_TIMING = dict(warm=1, iters=3)
+PAR_SIMPLE_TIMING = dict(warm=0, iters=2)
+
+
+def parallel_phase(runs: dict, smi_line: str) -> dict:
+    """[parallel]: the sharded online steps and distributed NTTs of
+    ``parallel/`` at full width, on inputs of the rows driven above: the
+    main BFV row (one-query server), the flat --bgv row and the SimpleFHE
+    row. First NCCL at world size 1 in this process (the dp x tp and
+    pipelined steps, the ring-sharded step at D = 1 and both NTTs at L = 6,
+    n = 16384), then four rank processes on the one card through gloo
+    staged via host memory (NCCL refuses two ranks on one device): dp x tp
+    at 2 x 2 (BFV) and 4 x 1 (flat BGV, L = 9), the ring-sharded step at D
+    = 4 (BFV, flat BGV), the pipelined step at k = 4 (BFV), the SimpleFHE
+    step over 4 ranks and both NTTs. Every gathered result must be
+    bit-equal with the unsharded port on the card (the batched rows on the
+    full basis: ``batched_pie_forward`` without mul_limbs), the 2 x 2 BFV
+    result must decrypt to EXPECTED_FOUND items, and each rank must launch
+    K1 and K2 where the step runs them. Prints per step the ms per query
+    (per timed query the slowest rank, host clock around a synchronised
+    step after a barrier), the bytes each rank sent, the launches per rank
+    and the transport. -> the launches summed over both runs, by kernel."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from nested_hashing_psi_tpu_torch import convert
+    from nested_hashing_psi_tpu_torch.fhe.device_decrypt import DeviceDecryptor
+    from nested_hashing_psi_tpu_torch.ops import ntt_cuda
+    from nested_hashing_psi_tpu_torch.parallel.launch import run_ranks
+    from nested_hashing_psi_tpu_torch.parallel.multihost import init_distributed
+    from nested_hashing_psi_tpu_torch.pie.batched_fhe import batched_pie_forward
+    from nested_hashing_psi_tpu_torch.pie.simple_fhe import SimpleFHEPIE
+
+    sys.path.append(os.path.join(ROOT, "tests"))  # the rank program, shared with the tests
+    from torch_parallel_cases import run_cases, summarize
+
+    def median_ms(fn, iters: int = 3) -> float:
+        """Median host-clock ms of fn() to a synchronise, after one warm call."""
+        fn()
+        torch.cuda.synchronize()
+        ts = []
+        for _ in range(iters):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ts.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(ts))
+
+    t_phase = time.perf_counter()
+    rows, want, unsharded = {}, {}, {}
+    for key, label in (("bfv", "queries=1"), ("bgv", "bgv flat")):
+        client, server = runs[label]
+        data = dict(idx=client.idx_ct.data, minus=client.minus_ct.data,
+                    table=server.pie.table_pt, mask=server.pie.mask_pt,
+                    rlk_b=server.rlk.b_mont, rlk_a=server.rlk.a_mont)
+
+        def step(server=server, data=data):
+            return batched_pie_forward(server.ctx, server.rlk, *(data[k] for k in
+                                                                 ("idx", "minus", "table", "mask")))
+
+        want[key] = convert.to_numpy(step().data)
+        unsharded[key] = median_ms(step)
+        rows[key] = dict(params=server.ctx.params,
+                         inputs={k: convert.to_numpy(v) for k, v in data.items()})
+    client, server = runs["SimpleFHE"]
+    ref = SimpleFHEPIE(server.ctx, server.server_table, server.gks, mask_seed=MASK_SEED)
+    t0 = time.perf_counter()
+    want["simple"] = convert.to_numpy(ref.run(client.idx_ct).data)
+    unsharded["simple"] = (time.perf_counter() - t0) * 1e3
+    simple_table_bytes = ref.table_pt.numel() * ref.table_pt.element_size()
+    del ref
+    simple = dict(kind="simple", params=server.ctx.params, mesh=(PAR_WORLD, 1),
+                  inputs={"idx": convert.to_numpy(client.idx_ct.data)},
+                  hct=server.server_table, galois_keys=convert.galois_keys_to_numpy(server.gks),
+                  mask_seed=MASK_SEED, **PAR_SIMPLE_TIMING)
+    ps = runs["queries=1"][1].ctx.q_primes
+    n = runs["queries=1"][1].ctx.n
+    x = np.random.default_rng(10).integers(0, min(ps), size=(len(ps), n)).astype(np.uint32)
+    xt = convert.from_numpy(x, "cuda")
+    plan = runs["queries=1"][1].ctx.plan
+    want["ntt"] = convert.to_numpy(ntt_cuda.ntt(xt, plan))
+    unsharded["ntt"] = median_ms(lambda: ntt_cuda.ntt(xt, plan), 10)
+    print(f"[parallel] the unsharded port on the card, ms per query (median of 3 after a warm "
+          f"call; SimpleFHE one call): BFV row, full basis {unsharded['bfv']:.3f}; flat BGV "
+          f"{unsharded['bgv']:.3f}; SimpleFHE {unsharded['simple']:.1f}; K1 forward at "
+          f"({len(ps)}, {n}) {unsharded['ntt']:.3f} (median of 10)", flush=True)
+    m1 = 1 << ((n.bit_length() - 1 + 1) // 2)
+    ntts = [dict(name="four-step NTT", kind="dist_ntt", params=(n, ps, m1),
+                 inputs={"x": x.reshape(len(ps), m1, n // m1)}, **PAR_TIMING),
+            dict(name="ring-exchange NTT", kind="ring_ntt", params=(n, ps, 0),
+                 inputs={"x": x}, **PAR_TIMING)]
+
+    def batched(name, kind, key, **kw):
+        return dict(name=name, kind=kind, params=rows[key]["params"], inputs=rows[key]["inputs"],
+                    want=key, **PAR_TIMING, **kw)
+
+    nccl_cases = [batched("dp x tp 1 x 1, BFV", "dp_tp", "bfv", mesh=(1, 1)),
+                  batched("pipelined k = 1, BFV", "pp", "bfv"),
+                  batched("ring-sharded D = 1, BFV", "sp", "bfv"), *ntts]
+    staged_cases = [batched("dp x tp 2 x 2, BFV", "dp_tp", "bfv", mesh=(2, 2)),
+                    batched("dp x tp 4 x 1, flat BGV", "dp_tp", "bgv", mesh=(4, 1)),
+                    batched("ring-sharded D = 4, BFV", "sp", "bfv"),
+                    batched("ring-sharded D = 4, flat BGV", "sp", "bgv"),
+                    batched("pipelined k = 4, BFV", "pp", "bfv"),
+                    dict(name="SimpleFHE over 4 ranks", want="simple", **simple), *ntts]
+    # what each step must launch in every rank: K1 where it transforms on
+    # one device, K2 where it sums positions (the ring-sharded step's
+    # transforms are the distributed butterfly, plain PyTorch)
+    must = {"dp_tp": ("ntt_fwd", "ntt_inv", "pie_ip"), "pp": ("ntt_fwd", "ntt_inv", "pie_ip"),
+            "sp": ("pie_ip",), "simple": ("ntt_fwd", "ntt_inv"), "dist_ntt": (), "ring_ntt": ()}
+
+    def check(label, cases, summary):
+        totals = {"ntt_fwd": 0, "ntt_inv": 0, "pie_ip": 0}
+        for case, s in zip(cases, summary):
+            got = s["results"]
+            if case["kind"] in ("dist_ntt", "ring_ntt"):
+                ok = (got[0].reshape(want["ntt"].shape) == want["ntt"]).all() and \
+                    (got[1] == case["inputs"]["x"]).all()
+            else:
+                ok = got[0].shape == want[case["want"]].shape and \
+                    (got[0] == want[case["want"]]).all()
+            counts = [c[0] for c in s["counts"]]
+            lacking = [k for k in must[case["kind"]] for c in counts if c[k] <= 0]
+            times = "; ".join(f"{t['median']:.3f} ms/query (min {t['min']:.3f}, max "
+                              f"{t['max']:.3f})" for t in s["ms"] if t)
+            print(f"[parallel] {label} {case['name']}: mesh {s['mesh']}, transport "
+                  f"{s['transport']}: {'bit-equal' if ok else 'DIFFERS'} with the unsharded "
+                  f"port; {times}; bytes sent per rank per query "
+                  f"{[c['bytes_sent'] for c in counts]}; launches per rank "
+                  f"K1 fwd {[c['ntt_fwd'] for c in counts]}, K1 inv "
+                  f"{[c['ntt_inv'] for c in counts]}, K2 {[c['pie_ip'] for c in counts]}; "
+                  f"device bytes held per rank once built {s['held']}", flush=True)
+            if not ok:
+                fail(f"[parallel] {label} {case['name']}: the gathered result differs from "
+                     "the unsharded port")
+            if lacking:
+                fail(f"[parallel] {label} {case['name']}: a rank did not launch {lacking}")
+            for c in s["counts"]:
+                for k in totals:
+                    totals[k] += sum(stage[k] for stage in c)
+        return totals
+
+    t0 = time.perf_counter()
+    init_distributed(None, 1, 0, "nccl")
+    try:
+        nccl = summarize([run_cases(0, 1, nccl_cases, "cuda")])
+    finally:
+        dist.destroy_process_group()
+    nccl_s = time.perf_counter() - t0
+    totals = check("nccl, world 1:", nccl_cases, nccl)
+    print(f"[parallel] nccl, world 1: {nccl_s:.2f} s", flush=True)
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    staged = summarize(run_ranks(run_cases, PAR_WORLD, "gloo", (staged_cases, "cuda"),
+                                 timeout=PAR_TIMEOUT))
+    staged_s = time.perf_counter() - t0
+    for k, v in check(f"gloo staged, {PAR_WORLD} ranks on one card:", staged_cases,
+                      staged).items():
+        totals[k] += v
+
+    # the 2 x 2 BFV result on the full basis (6 limbs) decrypts to the intersection
+    client = runs["queries=1"][0]
+    res = convert.from_numpy(staged[0]["results"][0], "cuda")
+    mask = DeviceDecryptor(client.ctx).zero_mask(res, client.sk.s_mont, client.ht.batch_slots)
+    found = len(client.client_ops.extract_intersection_mask(mask.cpu().numpy()))
+    # the SimpleFHE ranks hold their quarter of the table, not the whole
+    held = staged[[c["kind"] for c in staged_cases].index("simple")]["held"]
+    print(f"[parallel] SimpleFHE: the unsharded table {simple_table_bytes} B; held per rank "
+          f"{held} B", flush=True)
+    if max(held) >= simple_table_bytes:
+        fail(f"[parallel] a SimpleFHE rank holds {max(held)} B, not less than the whole "
+             f"table's {simple_table_bytes} B")
+    print(f"[parallel] dp x tp 2 x 2 BFV result {tuple(res.shape)} decrypted on the device "
+          f"({client.ctx.L} limbs): {found} found", flush=True)
+    if found != EXPECTED_FOUND:
+        fail(f"[parallel] the dp x tp result decrypts to {found} items, not {EXPECTED_FOUND}")
+    out = {"launches": totals, "nccl_s": nccl_s, "staged_s": staged_s,
+           "phase_s": time.perf_counter() - t_phase, "unsharded_ms": unsharded,
+           "ms": {f"{label} {case['name']}": s["ms"]
+                  for label, cs, ss in (("nccl", nccl_cases, nccl),
+                                        ("staged", staged_cases, staged))
+                  for case, s in zip(cs, ss)},
+           "bytes_sent": {f"{label} {case['name']}": [c[0]["bytes_sent"] for c in s["counts"]]
+                          for label, cs, ss in (("nccl", nccl_cases, nccl),
+                                                ("staged", staged_cases, staged))
+                          for case, s in zip(cs, ss)}}
+    print(f"[parallel] phase {out['phase_s']:.2f} s (nccl world 1 {nccl_s:.2f} s, "
+          f"{PAR_WORLD} staged ranks {staged_s:.2f} s, their start included); launches "
+          f"{totals}; the four ranks share one card, so their times measure the "
+          f"transport and the per-rank compute, not scale-out | card {smi_line}", flush=True)
+    return out
 
 
 def max_err(got, want, name: str) -> int:
@@ -1172,6 +1381,10 @@ def main() -> None:
     print(f"[main] kernel launches over all six runs {launches}", flush=True)
     torch.cuda.empty_cache()
 
+    # ---- parallel/: the sharded steps, NCCL at world 1, then four ranks ---
+    parallel = parallel_phase(runs, smi_line)
+    torch.cuda.empty_cache()
+
     # ---- the ElGamal protocols: host-only, no kernel launches -----------
     def kernel_counts():
         return {"ntt_fwd": ntt_cuda.launches["ntt"], "ntt_inv": ntt_cuda.launches["intt"],
@@ -1205,11 +1418,14 @@ def main() -> None:
     k3_note = "own phase: K3 has no caller on the protocol path"
     kernels = [
         entry("ntt_fwd", f"{csrc}/ntt.cu", "nested_hashing_psi_tpu/ops/ntt_pallas.py:631",
-              "ntt_q", launches["ntt_fwd"]),
+              "ntt_q", launches["ntt_fwd"],
+              parallel_launches=parallel["launches"]["ntt_fwd"]),
         entry("ntt_inv", f"{csrc}/ntt.cu", "nested_hashing_psi_tpu/ops/ntt_pallas.py:645",
-              "intt_q", launches["ntt_inv"]),
+              "intt_q", launches["ntt_inv"],
+              parallel_launches=parallel["launches"]["ntt_inv"]),
         entry("pie_ip", f"{csrc}/pie_ip.cu", "nested_hashing_psi_tpu/ops/pie_kernels.py:48",
-              "pie_ip", launches["pie_ip"], **dict(zip(
+              "pie_ip", launches["pie_ip"], parallel_launches=parallel["launches"]["pie_ip"],
+              **dict(zip(
                   ("l9_max_abs_err", "l9_ms", "l9_plain_ms", "l9_bound_ms", "l9_bound_by"),
                   results["pie_ip_l9"])),
               **{f"{key}_{f}": v for key in ("slice", "position_major", "acc")
@@ -1289,6 +1505,8 @@ def main() -> None:
                                moves_over_full=anat["moves"]["ms"] / anat["k1_ms"]))
     print(f"[elgamal] times {json.dumps(elgamal_times)}", flush=True)
     print(f"[checkpoint] times {json.dumps(checkpoint_times)}", flush=True)
+    print(f"[parallel] times {json.dumps({k: v for k, v in parallel.items() if k != 'launches'})}",
+          flush=True)
     print(smi_line)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -153,14 +153,20 @@ class SimpleFHEPIE(nn.Module):
         return Ciphertext(torch.cat(outs, dim=0), out.form, out.scale)
 
     def _run_impl(self, idx, table_pt, mask_pt, hf_perm) -> Ciphertext:
-        ctx = self.ctx
-        prod = mont_mul(idx[:, :, None], table_pt[:, :, :, None], ctx.p, ctx.pinv)  # (c, H, B, 2, L, N)
-        summed = ctx.eval_sum_all_slots(Ciphertext(prod, ctx.default_form), self.gks).data
-        sel = mont_mul(summed, self.sel_pt[:, None], ctx.p, ctx.pinv)
-        merged = modsum(sel, ctx.p, axis=2)                  # (c, H, 2, L, N)
-        masked = mont_mul(merged, mask_pt[:, :, None], ctx.p, ctx.pinv)
-        order = hf_perm[:, :, None, None, None].expand(masked.shape)
-        return Ciphertext(torch.gather(masked, 1, order), ctx.default_form)
+        return answer_pies(self.ctx, self.gks, self.sel_pt, idx, table_pt, mask_pt, hf_perm)
+
+
+def answer_pies(ctx: BGVContext, gks: dict[int, RelinKey], sel_pt, idx, table_pt, mask_pt,
+                hf_perm) -> Ciphertext:
+    """The online step on one block of pies: idx (c, H, 2, L, N) against
+    table_pt (c, H, B, L, N), mask_pt (c, H, L, N) and hf_perm (c, H)."""
+    prod = mont_mul(idx[:, :, None], table_pt[:, :, :, None], ctx.p, ctx.pinv)  # (c, H, B, 2, L, N)
+    summed = ctx.eval_sum_all_slots(Ciphertext(prod, ctx.default_form), gks).data
+    sel = mont_mul(summed, sel_pt[:, None], ctx.p, ctx.pinv)
+    merged = modsum(sel, ctx.p, axis=2)                  # (c, H, 2, L, N)
+    masked = mont_mul(merged, mask_pt[:, :, None], ctx.p, ctx.pinv)
+    order = hf_perm[:, :, None, None, None].expand(masked.shape)
+    return Ciphertext(torch.gather(masked, 1, order), ctx.default_form)
 
 
 class SimpleFHEClientOps:

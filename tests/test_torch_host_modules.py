@@ -315,6 +315,23 @@ _NO_JAX_SCRIPT = textwrap.dedent("""
             with profiling.device_trace(os.path.join(d, "trace")):
                 profile_build.main(["11", "--simpleSize", "32", "--inner", "8",
                                     "--device", "cpu"])
+        import numpy as np
+        import torch
+        from nested_hashing_psi_tpu_torch.ops import ntt4  # noqa: F401
+        from nested_hashing_psi_tpu_torch.ops.ntt import NTTPlan, ntt
+        from nested_hashing_psi_tpu_torch.ops.primes import ntt_primes
+        from nested_hashing_psi_tpu_torch.parallel import (  # noqa: F401
+            comm, dist_ntt, launch, mesh, multihost)
+        import torch_parallel_cases as cases
+
+        ps = tuple(ntt_primes(2, 31, 128))
+        x = np.random.default_rng(3).integers(0, min(ps), size=(2, 64)).astype(np.uint32)
+        case = dict(name="ring", kind="ring_ntt", params=(64, ps, 0), inputs={"x": x})
+        (fwd, back), = cases.summarize(
+            launch.run_ranks(cases.run_cases, 2, "gloo", ([case], "cpu"), 120))[0]["results"],
+        want = ntt(torch.from_numpy(x.view(np.int32)), NTTPlan(64, ps)).numpy().view(np.uint32)
+        assert (fwd == want).all() and (back == x).all()
+        print("RANKS_STAND_ALONE")
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith(("jax.", "nested_hashing_psi_tpu."))
                      or m == "nested_hashing_psi_tpu")
@@ -330,20 +347,24 @@ def test_port_imports_nothing_of_jax_or_the_jax_package(tmp_path):
     """Every port module imported, a whole protocol run, a two-worker
     parallel table build, the three probes' CPU runs, the end-to-end bench's
     --buildOnly and --resume (utils.checkpoint) and the build profiler under
-    utils.profiling's trace, in a fresh interpreter where the JAX package
-    cannot be imported (a stub that raises shadows it, for the spawned
-    workers too); afterwards neither it nor jax is in sys.modules."""
-    stub = tmp_path / "stub" / "nested_hashing_psi_tpu"
-    stub.mkdir(parents=True)
-    (stub / "__init__.py").write_text(
-        "raise ImportError('the port must not import the JAX package')\n")
+    utils.profiling's trace, and the ring-exchange NTT in two spawned gloo
+    ranks (parallel.launch, the tests' rank program), in a fresh interpreter where neither jax nor the
+    JAX package can be imported (stubs that raise shadow them, for the
+    spawned workers and ranks too); afterwards neither is in sys.modules."""
+    for name in ("nested_hashing_psi_tpu", "jax"):
+        stub = tmp_path / "stub" / name
+        stub.mkdir(parents=True)
+        (stub / "__init__.py").write_text(
+            f"raise ImportError('the port must not import {name}')\n")
     script = tmp_path / "port_alone.py"
     script.write_text(_NO_JAX_SCRIPT)
-    env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(stub.parent), REPO]))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(stub.parent), REPO,
+                                                       os.path.join(REPO, "tests")]))
     res = subprocess.run([sys.executable, str(script)], cwd=str(tmp_path), env=env,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr[-3000:]
     assert "Set matches!" in res.stdout and "PORT_STANDS_ALONE" in res.stdout
+    assert "RANKS_STAND_ALONE" in res.stdout
     assert res.stdout.count("G applications/s") == 11
     assert "[ntt_lazy]" in res.stdout and "[ntt_anatomy]" in res.stdout
     assert "RESUME RESULT: Set matches!" in res.stdout and "[profile_build] {" in res.stdout

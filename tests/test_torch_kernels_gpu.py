@@ -706,3 +706,47 @@ def test_elgamal_runner_on_cuda_verifies(cuda, capsys, precomp):
     assert len(client.intersection_calculated) == 2
     assert client.device.type == server.device.type == "cuda"
     assert ntt_cuda.launches["ntt"] + ntt_cuda.launches["intt"] + pie_kernels.launches == 0
+
+
+def test_sharded_steps_nccl_world_one(cuda):
+    """parallel/ on NCCL at world size 1 on the card, the path a multi-GPU
+    user runs: the dp x tp, pipelined and ring-sharded steps (BFV, full
+    basis) bit-equal to the unsharded step on the same device, K1 and K2
+    launched where the steps run them; two ranks on one card are refused."""
+    import torch.distributed as dist
+
+    from nested_hashing_psi_tpu_torch import convert
+    from nested_hashing_psi_tpu_torch.fhe.bfv import make_context
+    from nested_hashing_psi_tpu_torch.fhe.params import SchemeParams
+    from nested_hashing_psi_tpu_torch.parallel.launch import run_ranks
+    from nested_hashing_psi_tpu_torch.parallel.multihost import init_distributed
+    from nested_hashing_psi_tpu_torch.pie.batched_fhe import batched_pie_forward
+    from torch_parallel_cases import run_cases, summarize
+
+    n, L, H, D, P = 1024, 6, 2, 4, 4
+    params = SchemeParams(ring_dim=n, plaintext_modulus=T32, num_limbs=L, scheme="bfv")
+    ctx = make_context(params, seed=3, device=cuda)
+    sk, _ = ctx.keygen()
+    rlk = ctx.relin_keygen(sk)
+    ps = ctx.q_primes
+    data = dict(idx=_residues((H, P, 2, L, n), ps, 1), minus=_residues((2, L, n), ps, 2),
+                table=_residues((H, D, P, L, n), ps, 3), mask=_residues((D, L, n), ps, 4))
+    want = batched_pie_forward(ctx, rlk, *(data[k].to(cuda) for k in data)).data
+    inputs = {k: convert.to_numpy(v) for k, v in data.items()}
+    inputs.update(rlk_b=convert.to_numpy(rlk.b_mont), rlk_a=convert.to_numpy(rlk.a_mont))
+    cases = [dict(name="dp_tp", kind="dp_tp", params=params, inputs=inputs, mesh=(1, 1)),
+             dict(name="pp", kind="pp", params=params, inputs=inputs),
+             dict(name="sp", kind="sp", params=params, inputs=inputs)]
+    init_distributed(None, 1, 0, "nccl")
+    try:
+        out = summarize([run_cases(0, 1, cases, "cuda")])
+    finally:
+        dist.destroy_process_group()
+    for s in out:
+        assert s["transport"] == "nccl"
+        np.testing.assert_array_equal(s["results"][0], convert.to_numpy(want))
+        c = s["counts"][0][0]
+        assert c["pie_ip"] > 0 and (s["name"] == "sp" or c["ntt_fwd"] * c["ntt_inv"] > 0)
+    if torch.cuda.device_count() == 1:  # both ranks take card 0: the store check refuses
+        with pytest.raises(RuntimeError, match=r"nccl needs one GPU per rank: rank [01] shares"):
+            run_ranks(run_cases, 2, "nccl", ([], "cuda"), timeout=120)
