@@ -23,13 +23,17 @@
    ``mod_switch`` on the card against the port on the CPU (bit-equal).
    The [sass] step also counts the three probes' instructions (A1 per
    application of each op mix, by pipe, failing if a chain was folded:
-   fewer than one application can take; A2's and A3's per butterfly;
-   LDS/STS in A3's moves, failing without them). The [probe] phase drives
+   fewer than one application can take; A2's and A3's stages' per
+   butterfly, failing below the fewest a butterfly of the form can take,
+   ``MIN_ARITH`` of their modules; LDS/STS in A3's moves, failing without
+   them) and prints every A2 and A3 instance's registers and spill bytes
+   (ptxas), failing if A2 or A3's stages spills. The [probe] phase drives
    the probe path, the three probes' ``main`` (benchmarks/ of the port) at
    their full shapes, with their launch counts set to 0 just before and
    read just after: A1 the uint32 op mixes at (64, 128, 128), K = 64, then
    at K = 2^15 for the rates; A2 the lazy butterfly forms and A3 the NTT
-   anatomy at (512, 6, 16384), each beside K1 on the same input. Each
+   anatomy at (512, 6, 16384), each beside K1 on the same input, with
+   A2's forms' and A3's stages' ms, bound by pipe and share. Each
    ``main`` holds every variant, and K1, against its plain version on the
    card, bit-exact (fmul: NaNs as one class), and raises otherwise;
 2. drives the port's main path through its user entry points
@@ -92,7 +96,10 @@
 
 The A1 probe's bound counts each mix's busier pipe (bench_vpu_ops.ops_per_app:
 64 lanes per clock per SM each, a wide product two FMA-pipe slots); the
-[a1_bound] line prints each mix's share at K = 64 and at K = 2^15.
+[a1_bound] line prints each mix's share at K = 64 and at K = 2^15. A2's
+and A3's stages' bounds count their butterflies the same way
+(bench_ntt_lazy_probe.bound_ms); their kernel entries carry it as
+``bound_by_pipe``, with each variant's ``registers``.
 
 It fails if jax, the JAX package nested_hashing_psi_tpu or cryptography
 was imported. It prints the card's name and power limit, one JSON line
@@ -292,20 +299,16 @@ def k3_bound(rows: int, L: int, n: int, m1: int, digits: int) -> tuple[float, st
     return bound(2 * macs, INT8_OPS_S, rows * n * 8 + table_bytes)
 
 
-def ptxas_summary(report: str) -> str:
-    """Registers and spills per kernel family from `nvcc -Xptxas -v`."""
-    fam, regs, spills = None, {}, {}
-    for line in report.splitlines():
-        if "Compiling entry function" in line:
-            name = line.split("'")[1] if "'" in line else line
-            fam = next((f for f in ("ntt_fwd", "ntt_inv", "ntt_mxu", "pie_ip", "vpu_ops",
-                                    "ntt_lazy", "ntt_anatomy") if f in name), "other")
-        elif fam and "Used" in line and "registers" in line:
-            n = int(line.split("Used")[1].split("registers")[0])
-            regs[fam] = max(regs.get(fam, 0), n)
-        elif fam and "spill stores" in line:
-            n = int(line.split("bytes spill stores")[0].split()[-1])
-            spills[fam] = max(spills.get(fam, 0), n)
+def ptxas_summary(instances: dict) -> str:
+    """Registers and spills per kernel family, the most of its instances
+    (``benchmarks.common.ptxas_instances`` of `nvcc -Xptxas -v`)."""
+    regs, spills = {}, {}
+    for name, r in instances.items():
+        fam = next((f for f in ("ntt_fwd", "ntt_inv", "ntt_mxu", "pie_ip", "vpu_ops",
+                                "ntt_lazy", "anatomy_stages", "anatomy_moves") if f in name),
+                   "other")
+        regs[fam] = max(regs.get(fam, 0), r["registers"])
+        spills[fam] = max(spills.get(fam, 0), r["spill_stores"])
     return "max registers " + ", ".join(f"{k} {v}" for k, v in sorted(regs.items())) + \
         "; max spill-store bytes " + ", ".join(f"{k} {v}" for k, v in sorted(spills.items()))
 
@@ -889,6 +892,7 @@ def main() -> None:
             bench_ntt_lazy_probe,
             bench_vpu_ops,
         )
+        from nested_hashing_psi_tpu_torch.benchmarks import common as bench_common
         from nested_hashing_psi_tpu_torch.fhe.bgv import BGVContext, Ciphertext
         from nested_hashing_psi_tpu_torch.fhe.device_decrypt import DeviceDecryptor
         from nested_hashing_psi_tpu_torch.fhe.params import SchemeParams, bfv_mul_limbs
@@ -917,10 +921,10 @@ def main() -> None:
 
     # ---- build --------------------------------------------------------
     t0 = time.perf_counter()
-    report = cuda_lib.build(verbose=True)
+    ptxas = bench_common.ptxas_instances(cuda_lib.build(verbose=True))
     cuda_lib.get_lib()
     print(f"[build] {len(cuda_lib.sources())} sources -> {cuda_lib.LIB_PATH} in "
-          f"{time.perf_counter() - t0:.2f} s; {ptxas_summary(report)}", flush=True)
+          f"{time.perf_counter() - t0:.2f} s; {ptxas_summary(ptxas)}", flush=True)
     print("[sass] K1 top window, n = 16384: "
           f"{k1_instruction_mix(cuda_lib.LIB_PATH, cuda_lib.find_nvcc())}", flush=True)
     k3_sass = k3_sass_counts(cuda_lib.LIB_PATH, cuda_lib.find_nvcc())
@@ -942,19 +946,37 @@ def main() -> None:
     if folded:
         fail(f"A1 chains folded (instructions per application, floor): {folded}")
     probe_plan = SplitNTTPlan(16384, ntt_primes(6, 31, 2 * 16384))
-    probe_sass = {v: bench_ntt_lazy_probe.sass_per_butterfly("ntt_lazy_kernel", probe_plan, i)
-                  for i, v in enumerate(bench_ntt_lazy_probe.VARIANTS)}
-    probe_sass["stages"] = bench_ntt_lazy_probe.sass_per_butterfly(
-        "ntt_anatomy_kernel", probe_plan, 0)
-    probe_sass["moves"] = bench_ntt_anatomy.moves_sass(probe_plan)
-    moves_ops = probe_sass.pop("moves")["opcodes"]
-    print("[sass] A2 and A3 at n = 16384, per butterfly, FMA pipe + ALU + memory: "
-          + "; ".join(f"{v} {s['fma']:.2f} + {s['alu']:.2f} + {s['memory']:.2f}"
-                      for v, s in probe_sass.items())
+    # the redesigned probe kernels (A2's three forms, A3's stages) by name
+    probe_kernels = {v: bench_ntt_lazy_probe.kernel_name(128, v)
+                     for v in bench_ntt_lazy_probe.VARIANTS}
+    probe_kernels["stages"] = bench_ntt_anatomy.kernel_name(128, "stages")
+    probe_floor = {**bench_ntt_lazy_probe.MIN_ARITH, **bench_ntt_anatomy.MIN_ARITH}
+    probe_sass = {v: bench_ntt_lazy_probe.sass_per_butterfly(k, probe_plan)
+                  for v, k in probe_kernels.items()}
+    moves_ops = bench_ntt_anatomy.moves_sass(probe_plan)["opcodes"]
+    print("[sass] A2 and A3 at n = 16384, per butterfly, FMA pipe (slots) + ALU + memory: "
+          + "; ".join(f"{v} {s['fma']:.2f} ({s['fma_slots']:.2f}) + {s['alu']:.2f} + "
+                      f"{s['memory']:.2f}" for v, s in probe_sass.items())
           + f"; A3 moves, its row loop (static): LDS {moves_ops.get('LDS', 0):.0f}, STS "
           f"{moves_ops.get('STS', 0):.0f}", flush=True)
     if not (moves_ops.get("LDS") and moves_ops.get("STS")):
         fail("A3's moves kernel has no LDS/STS: it does not move the data through shared memory")
+    folded = {v: (s["arith"], probe_floor[v]) for v, s in probe_sass.items()
+              if s["arith"] < probe_floor[v]}
+    if folded:
+        fail(f"A2/A3 butterflies below their floor (FMA + ALU per butterfly, floor): {folded}")
+    probe_regs = {}
+    for m in bench_ntt_lazy_probe.KERNEL_M:
+        for v in (*bench_ntt_lazy_probe.VARIANTS, *bench_ntt_anatomy.VARIANTS):
+            mod = bench_ntt_lazy_probe if v in bench_ntt_lazy_probe.VARIANTS else bench_ntt_anatomy
+            probe_regs[(m, v)] = bench_common.instance(ptxas, mod.kernel_name(m, v))
+    print("[sass] A2 and A3 registers / spill-store bytes per instance: " + "; ".join(
+        f"{v} m={m} {r['registers']}/{r['spill_stores']}" for (m, v), r in probe_regs.items()),
+        flush=True)
+    spilled = {f"{v} m={m}": r["spill_stores"] for (m, v), r in probe_regs.items()
+               if v != "moves" and r["spill_stores"]}
+    if spilled:
+        fail(f"redesigned probe instances spill (bytes of spill stores): {spilled}")
 
     # ---- kernels vs plain at the main path's shapes ---------------------
     T = (1 << 32) + (1 << 20) + (1 << 19) + 1
@@ -1217,6 +1239,12 @@ def main() -> None:
           f"{anat['moves']['ms']:.4f} ms, full (K1) {anat['k1_ms']:.4f} ms; stages / full "
           f"{anat['stages']['ms'] / anat['k1_ms']:.3f}, moves / full "
           f"{anat['moves']['ms'] / anat['k1_ms']:.3f}", flush=True)
+    redesigned = {**probe_runs["lazy"], **anat}
+    print("[probe] redesigned A2 and A3 at (512, 6, 16384), ms / bound by pipe (by) / share: "
+          + "; ".join(f"{v} {redesigned[v]['ms']:.4f} / {redesigned[v]['bound_ms']:.4f} "
+                      f"({redesigned[v]['bound_by']}) / "
+                      f"{redesigned[v]['bound_ms'] / redesigned[v]['ms']:.3f}"
+                      for v in probe_kernels), flush=True)
     torch.cuda.empty_cache()
 
     # ---- the main path: three protocol runs ----------------------------
@@ -1487,6 +1515,11 @@ def main() -> None:
             if v != "moves":  # moves has no butterflies
                 fields[f"{v}_sass_arith_per_butterfly"] = run[v]["sass"]["arith"]
             fields[f"{v}_limb_transforms_s"] = run[v]["transforms_per_s"]
+        # the butterfly variants' bounds by pipe, and every variant's
+        # registers and spills at n = 16384
+        fields["bound_by_pipe"] = {v: run[v]["bound_by_pipe"] for v in (main_v, *others)
+                                   if "bound_by_pipe" in run[v]}
+        fields["registers"] = {v: probe_regs[(128, v)] for v in (main_v, *others)}
         return {"name": name, "route": "cuda", "source": f"{csrc}/{source}",
                 "replaces": replaces, "launches": probe_launches[name],
                 "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],

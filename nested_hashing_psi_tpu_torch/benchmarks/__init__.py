@@ -11,5 +11,6 @@ version and prints rates. Run one with
 (``--device cpu`` runs the plain version alone, at small sizes.) The
 end-to-end bench with the offline artifact's save and resume
 (``bench_e2e_psi``) and the offline build's profile by stage
-(``profile_build``) run the same way.
+(``profile_build``) run the same way, and ``probe_sweep`` times A2 and A3
+of several trees of the port in turns.
 """

@@ -22,7 +22,8 @@ CUDA tensor and takes ``anatomy_probe_plain`` on a CPU tensor only;
 ``launches`` counts kernel launches. ``main`` runs both at the JAX probe's
 shape, (512, 6, 16384), against the plain version, then K1 on the same
 input (held against the plain ``ntt``), and prints ms, limb-transforms/s
-and each one's share of ``full``.
+and each one's share of ``full``. The ``stages`` kernel holds one class
+of residues per thread (``u32.class_stride``), as A2's does.
 
     python -m nested_hashing_psi_tpu_torch.benchmarks.bench_ntt_anatomy [--device cpu] [--n N] [--limbs L] [--batch B]
 """
@@ -38,6 +39,7 @@ from nested_hashing_psi_tpu_torch.benchmarks.bench_ntt_lazy_probe import (
     BATCH,
     LIMBS,
     N,
+    bound_by_pipe,
     bound_ms,
     check_input,
     inputs,
@@ -48,6 +50,11 @@ from nested_hashing_psi_tpu_torch.ops import cuda_lib
 from nested_hashing_psi_tpu_torch.ops.split_plan import SplitNTTPlan
 
 VARIANTS = ("stages", "moves")
+# The fewest FMA-pipe plus ALU instructions of one stages butterfly (a
+# Cooley-Tukey or a Gentleman-Sande one: each a Shoup product, its
+# conditional subtract, an add_mod and a sub_mod;
+# bench_ntt_lazy_probe.MIN_ARITH's exact).
+MIN_ARITH = {"stages": 8}
 
 launches = 0
 
@@ -118,11 +125,16 @@ def anatomy_probe(x: torch.Tensor, plan: SplitNTTPlan, which: str) -> torch.Tens
     return y
 
 
+def kernel_name(m: int, which: str) -> str:
+    """A fragment of the mangled name of variant ``which``'s kernel at tile side m."""
+    return f"anatomy_{which}_kernelILi{m}E"
+
+
 def moves_sass(plan: SplitNTTPlan) -> dict:
     """Static SASS instruction counts of the moves kernel's row loop (its
     global-memory loops are unrolled 16 times, so these are not counts per
     element); chip_smoke.py checks that it has LDS and STS."""
-    body = common.loop_body(common.find_function(f"ntt_anatomy_kernelILi{plan.m1}ELi1E"))
+    body = common.loop_body(common.find_function(kernel_name(plan.m1, "moves")))
     return common.by_pipe(body, 1)
 
 
@@ -145,12 +157,13 @@ def run(device: str = "cuda", n: int = N, limbs: int = LIMBS, batch: int = BATCH
         r["transforms_per_s"] = rows / (r["ms"] * 1e-3)
         if dev.type == "cuda":
             if name == "stages":
-                r["sass"] = sass_per_butterfly("ntt_anatomy_kernel", plan, 0)
-                r["bound_ms"], r["bound_by"] = bound_ms(
-                    rows, n, r["sass"]["arith"], plan.s1_v2.nbytes + plan.s2_v2.nbytes)
+                tables = plan.s1_v2.nbytes + plan.s2_v2.nbytes
+                r["sass"] = sass_per_butterfly(kernel_name(plan.m1, name), plan)
+                r["bound_ms"], r["bound_by"] = bound_ms(rows, n, r["sass"], tables)
+                r["bound_by_pipe"] = bound_by_pipe(rows, n, r["sass"], tables)
             else:
                 r["sass"] = moves_sass(plan)
-                r["bound_ms"], r["bound_by"] = bound_ms(rows, n, 0.0, plan.tw.nbytes)
+                r["bound_ms"], r["bound_by"] = bound_ms(rows, n, None, plan.tw.nbytes)
         out[name] = r
     out["k1_max_abs_err"], out["k1_ms"] = k1_line(x, ps, dev, iters)
     out["k1_transforms_per_s"] = rows / (out["k1_ms"] * 1e-3)
@@ -179,8 +192,9 @@ def main(argv=None) -> dict:
             line += (f"; bound {r['bound_ms']:.4f} ms ({r['bound_by']}), share "
                      f"{r['bound_ms'] / r['ms']:.3f}; plain {r['plain_ms']:.2f} ms; ")
             if name == "stages":
-                line += (f"SASS per butterfly: FMA pipe {s['fma']:.2f}, ALU {s['alu']:.2f}, "
-                         f"memory {s['memory']:.2f}")
+                line += (f"operations {r['bound_by_pipe']['operations_ms']:.4f} ms by pipe; "
+                         f"SASS per butterfly: FMA pipe {s['fma']:.2f} ({s['fma_slots']:.2f} "
+                         f"slots), ALU {s['alu']:.2f}, memory {s['memory']:.2f}")
             else:
                 line += (f"SASS in its row loop (static): LDS {s['opcodes'].get('LDS', 0):.0f}, "
                          f"STS {s['opcodes'].get('STS', 0):.0f}, memory {s['memory']:.0f}")

@@ -20,8 +20,12 @@ tensor and takes ``lazy_probe_plain`` on a CPU tensor only; ``launches``
 counts kernel launches. ``main`` runs the three forms at the JAX probe's
 shape, (512, 6, 16384), against the plain version, with the port's K1
 (ops/ntt_cuda.ntt, held against the plain ``ntt``) on the same input as
-the reference line, and prints ms, limb-transforms/s and SASS
-instructions per butterfly.
+the reference line, and prints ms, limb-transforms/s, SASS instructions
+per butterfly by pipe and the bound they give.
+
+The kernel holds one class of residues per thread (``u32.class_stride``):
+the C = M / S rows alpha + S i of one column, which the stages of a half
+never leave, 16 residues at M = 128 (csrc/probe_ntt.cuh).
 
     python -m nested_hashing_psi_tpu_torch.benchmarks.bench_ntt_lazy_probe [--device cpu] [--n N] [--limbs L] [--batch B]
 """
@@ -34,6 +38,7 @@ import numpy as np
 import torch
 
 from nested_hashing_psi_tpu_torch.benchmarks import common, u32
+from nested_hashing_psi_tpu_torch.benchmarks.bench_vpu_ops import PIPE_OPS_S, ops_per_app
 from nested_hashing_psi_tpu_torch.ops import cuda_lib, ntt_cuda
 from nested_hashing_psi_tpu_torch.ops.ntt import NTTPlan, ntt
 from nested_hashing_psi_tpu_torch.ops.primes import ntt_primes
@@ -42,6 +47,16 @@ from nested_hashing_psi_tpu_torch.ops.split_plan import SplitNTTPlan
 VARIANTS = ("exact", "lazy", "lazy_ps")
 N, LIMBS, BATCH = 1 << 14, 6, 512
 KERNEL_M = (32, 64, 128)  # the kernel's tile sides: n = 2^10, 2^12, 2^14
+HBM_BYTES_S = 3.35e12
+# The fewest FMA-pipe plus ALU instructions one butterfly of each form can
+# take; chip_smoke.py's [sass] step fails below it, as a miscounted loop or
+# a folded chain must not pass as a fast kernel. exact: the Shoup product
+# (IMAD.HI and two IMADs), its conditional subtract, and an add_mod and a
+# sub_mod of two each (an add, then a fused add-min); lazy: the same
+# product, the conditional subtract of u and two adds; lazy_ps: lazy with
+# the one high product replaced by four 16-bit partial products and at
+# least three adds that combine them.
+MIN_ARITH = {"exact": 8, "lazy": 6, "lazy_ps": 12}
 
 launches = 0
 
@@ -120,23 +135,50 @@ def lazy_probe(x: torch.Tensor, plan: SplitNTTPlan, which: str) -> torch.Tensor:
     return y
 
 
-def bound_ms(rows: int, n: int, arith_per_butterfly: float, table_bytes: int) -> tuple[float, str]:
-    """The larger of the bytes (each row read and written once, the tables
-    once, at 3.35 TB/s) and n/2 log2 n butterflies per row at the given
-    arithmetic instructions each, at 33.5 T/s (128 lanes per clock per SM,
-    132 SMs, 1.98 GHz)."""
-    t_bytes = (rows * n * 8 + table_bytes) / 3.35e12 * 1e3
-    ops = rows * (n // 2) * (n.bit_length() - 1) * arith_per_butterfly
-    t_ops = ops / (128 * 132 * 1.98e9) * 1e3
+def bytes_ms(rows: int, n: int, table_bytes: int) -> float:
+    """Each row read and written once, the tables once, at 3.35 TB/s."""
+    return (rows * n * 8 + table_bytes) / HBM_BYTES_S * 1e3
+
+
+def pipe_ms(rows: int, n: int, sass: dict) -> float:
+    """n/2 log2 n butterflies per row on the busier integer pipe at the
+    kernel's SASS counts per butterfly (``bench_vpu_ops.ops_per_app``: the
+    FMA pipe's issue slots, a high or wide product two, or the ALU's
+    instructions), 64 lanes per clock per SM (``PIPE_OPS_S``)."""
+    return rows * (n // 2) * (n.bit_length() - 1) * ops_per_app(sass) / PIPE_OPS_S * 1e3
+
+
+def bound_ms(rows: int, n: int, sass: dict | None, table_bytes: int) -> tuple[float, str]:
+    """The larger of ``bytes_ms`` and ``pipe_ms`` (no operations for
+    ``sass=None``: A3's moves has no butterflies)."""
+    t_bytes = bytes_ms(rows, n, table_bytes)
+    t_ops = 0.0 if sass is None else pipe_ms(rows, n, sass)
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def sass_per_butterfly(kernel: str, plan: SplitNTTPlan, variant: int) -> dict:
-    """SASS instructions per butterfly of one kernel's row loop at the
-    plan's tile side (a thread runs (log2 m1 + log2 m2) m1 / 2 butterflies
-    per row)."""
-    body = common.loop_body(common.find_function(f"{kernel}ILi{plan.m1}ELi{variant}E"))
-    return common.by_pipe(body, (plan.log1 + plan.log2) * plan.m1 // 2)
+def bound_by_pipe(rows: int, n: int, sass: dict, table_bytes: int) -> dict:
+    """What ``bound_ms`` weighs: the FMA-pipe slots and ALU instructions
+    per butterfly, and the operations' and the bytes' ms."""
+    return {"fma_slots_per_butterfly": sass["fma_slots"], "alu_per_butterfly": sass["alu"],
+            "operations_ms": pipe_ms(rows, n, sass), "bytes_ms": bytes_ms(rows, n, table_bytes)}
+
+
+def kernel_name(m: int, which: str) -> str:
+    """A fragment of the mangled name of form ``which``'s kernel at tile side m."""
+    return f"ntt_lazy_kernelILi{m}ELi{VARIANTS.index(which)}E"
+
+
+def butterflies_per_thread(plan: SplitNTTPlan) -> int:
+    """The butterflies a thread of a probe kernel runs per slab: both
+    halves' stages on its class of m1 / S residues."""
+    return (plan.log1 + plan.log2) * (plan.m1 // u32.class_stride(plan.m1)) // 2
+
+
+def sass_per_butterfly(kernel: str, plan: SplitNTTPlan) -> dict:
+    """SASS instructions per butterfly, by pipe, of the slab loop of the
+    kernel whose name contains ``kernel`` (``kernel_name``)."""
+    body = common.loop_body(common.find_function(kernel))
+    return common.by_pipe(body, butterflies_per_thread(plan))
 
 
 def inputs(n: int, limbs: int, batch: int, device):
@@ -178,8 +220,9 @@ def run(device: str = "cuda", n: int = N, limbs: int = LIMBS, batch: int = BATCH
              "plain_ms": common.time_ms(lambda: lazy_probe_plain(x, plan, name), dev, 1)}
         r["transforms_per_s"] = rows / (r["ms"] * 1e-3)
         if dev.type == "cuda":
-            r["sass"] = sass_per_butterfly("ntt_lazy_kernel", plan, VARIANTS.index(name))
-            r["bound_ms"], r["bound_by"] = bound_ms(rows, n, r["sass"]["arith"], table_bytes)
+            r["sass"] = sass_per_butterfly(kernel_name(plan.m1, name), plan)
+            r["bound_ms"], r["bound_by"] = bound_ms(rows, n, r["sass"], table_bytes)
+            r["bound_by_pipe"] = bound_by_pipe(rows, n, r["sass"], table_bytes)
         out[name] = r
     out["k1_max_abs_err"], out["k1_ms"] = k1_line(x, ps, dev, iters)
     out["k1_transforms_per_s"] = rows / (out["k1_ms"] * 1e-3)
@@ -205,10 +248,11 @@ def main(argv=None) -> dict:
                 f"limb-transforms/s")
         if "sass" in r:
             s = r["sass"]
-            line += (f"; bound {r['bound_ms']:.4f} ms ({r['bound_by']}), share "
+            line += (f"; bound {r['bound_ms']:.4f} ms ({r['bound_by']}; operations "
+                     f"{r['bound_by_pipe']['operations_ms']:.4f} ms by pipe), share "
                      f"{r['bound_ms'] / r['ms']:.3f}; SASS per butterfly: FMA pipe "
-                     f"{s['fma']:.2f}, ALU {s['alu']:.2f}, memory {s['memory']:.2f}; plain "
-                     f"{r['plain_ms']:.2f} ms")
+                     f"{s['fma']:.2f} ({s['fma_slots']:.2f} slots), ALU {s['alu']:.2f}, memory "
+                     f"{s['memory']:.2f}; plain {r['plain_ms']:.2f} ms")
         print(line, flush=True)
     print(f"[ntt_lazy]       K1: {res['k1_ms']:.4f} ms, {res['k1_transforms_per_s']:,.0f} "
           "limb-transforms/s (ops/ntt_cuda.ntt, forward; equal to the plain ntt)", flush=True)

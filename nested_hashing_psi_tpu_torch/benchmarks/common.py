@@ -132,6 +132,36 @@ def by_pipe(instrs, units: float) -> dict[str, float]:
             "opcodes": {k: v / units for k, v in sorted(hist.items())}}
 
 
+def ptxas_instances(report: str) -> dict[str, dict[str, int]]:
+    """Kernel name -> {registers, spill_stores, spill_loads} (bytes) from
+    the ``-Xptxas -v`` report of a build (``cuda_lib.build(verbose=True)``,
+    ``cuda_lib.ptxas_report``)."""
+    out, name = {}, None
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1)
+            out[name] = {"registers": 0, "spill_stores": 0, "spill_loads": 0}
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            out[name]["spill_stores"], out[name]["spill_loads"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[name]["registers"] = int(m.group(1))
+    return out
+
+
+def instance(instances: dict[str, dict[str, int]], fragment: str) -> dict[str, int]:
+    """The one entry of ``ptxas_instances`` whose name contains ``fragment``."""
+    hits = [k for k in instances if fragment in k]
+    if len(hits) != 1:
+        raise RuntimeError(f"{len(hits)} kernels match {fragment!r} in the ptxas report")
+    return instances[hits[0]]
+
+
 def card_line() -> str:
     """`nvidia-smi --query-gpu=name,power.limit` of the first card, or a note."""
     try:

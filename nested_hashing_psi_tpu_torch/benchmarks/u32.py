@@ -108,6 +108,14 @@ def pair_distance(M: int, k: int) -> int:
     return t if t >= 8 else t * (M // 8)
 
 
+def class_stride(M: int) -> int:
+    """S, the least pair distance of a half (8 at M = 64 and 128, 4 at
+    M = 32). Every pair distance is a power of two from S up, so a half's
+    stages keep each class of rows alpha + S i (i < M / S) to itself: the
+    layout of the probe kernels (csrc/probe_ntt.cuh)."""
+    return min(pair_distance(M, k) for k in range(M.bit_length() - 1))
+
+
 def ct_exact(u, v, w, wq, p):
     x = shoup_mul(v, w, wq, p)
     return add_mod(u, x, p), sub_mod(u, x, p)

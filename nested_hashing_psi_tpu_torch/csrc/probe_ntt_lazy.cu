@@ -18,18 +18,30 @@
 // Bit-exact with lazy_probe_plain in
 // nested_hashing_psi_tpu_torch/benchmarks/bench_ntt_lazy_probe.py.
 //
-// What bounds it on an H100: its bytes. A (512, 6, 16384) call reads and
-// writes 201 MB once each (0.120 ms at 3.35 TB/s); its 352 M butterflies
-// take 0.084 ms at 8 instructions each at 33.5 T/s (the pre-split form
-// needs more).
+// What bounds it on an H100: exact and lazy, their bytes, 201 MB read and
+// written once each at (512, 6, 16384) (0.120 ms at 3.35 TB/s), a little
+// more than their 352 M butterflies take on the busier integer pipe (the
+// FMA pipe's 5.4-5.5 issue slots a butterfly); lazy_ps, its instructions
+// (10.3 FMA-pipe slots and 10.1 ALU a butterfly, 0.217 ms).
+// benchmarks/bench_ntt_lazy_probe.py bound_ms counts both by pipe from the
+// kernel's SASS.
 //
-// Design (probe_ntt.cuh): a block of M threads takes kRowsPerBlock rows of
-// one prime and stages the prime's two tables in shared memory once. Per
-// row, thread j loads column j (coalesced) into registers and runs the
-// first half's stages there; the tile goes through shared memory (padded
-// to M + 1 words a row, so column writes and row reads are free of bank
-// conflicts); thread i runs the second half on row i; the tile goes back
-// through shared memory and thread j stores column j.
+// Design (probe_ntt.cuh): the work is the slab of one row class alpha of a
+// tile, C = M / S rows alpha + S i of all M columns (16 x 128 at M = 128),
+// taken by M threads, kThreads / M slabs to a block at a time, the blocks
+// of a prime walking its slabs in a grid-stride loop (no wave tail), each
+// thread loading its next slab's residues before it runs this one's
+// stages, so the loads overlap the integer work. Thread c loads its
+// column's C residues (a warp's loads are 128 B rows) and runs the first
+// half in registers (table entries indexed by row: a broadcast read). The
+// slab goes through shared memory, C rows padded to W = M + S words: then
+// thread t holds slab row t / S restricted to the column class beta = t % S,
+// columns beta + S j, and runs the second half (entries indexed by column:
+// S distinct consecutive entries per warp read). As W mod 32 = S, the
+// column writes and the class reads are free of bank conflicts. The slab
+// goes back the same way and is stored a row at a time. Two barriers per
+// slab, among its M threads only (a named barrier; a warp sync at M = 32).
+// The prime's two tables are staged in shared memory once per block.
 #include <type_traits>
 
 #include "probe_ntt.cuh"
@@ -74,61 +86,82 @@ using Form = std::conditional_t<VAR == 0, CtExact, std::conditional_t<VAR == 1, 
 
 template <int M, int VAR>
 constexpr size_t smem_bytes() {
-  return 2 * ilog2(M) * M * sizeof(typename Form<VAR>::Entry) + sizeof(uint32_t) * M * (M + 1);
+  return 2 * ilog2(M) * M * sizeof(typename Form<VAR>::Entry) +
+         sizeof(uint32_t) * (kThreads / M) * kClass<M> * (M + kStride<M>);
+}
+
+// The barrier of one slab's M threads.
+template <int M>
+__device__ __forceinline__ void slab_sync() {
+  if constexpr (M == 32) {
+    __syncwarp();
+  } else {
+    asm volatile("bar.sync %0, %1;" ::"r"(1 + static_cast<int>(threadIdx.x) / M), "r"(M)
+                 : "memory");
+  }
 }
 
 template <int M, int VAR>
-__global__ void __launch_bounds__(M) ntt_lazy_kernel(const uint32_t* __restrict__ x,
-                                                     uint32_t* __restrict__ y,
-                                                     const uint32_t* __restrict__ sa,
-                                                     const uint32_t* __restrict__ sb,
-                                                     const uint32_t* __restrict__ primes, int B,
-                                                     int L) {
+__global__ void __launch_bounds__(kThreads) ntt_lazy_kernel(const uint32_t* __restrict__ x,
+                                                            uint32_t* __restrict__ y,
+                                                            const uint32_t* __restrict__ sa,
+                                                            const uint32_t* __restrict__ sb,
+                                                            const uint32_t* __restrict__ primes,
+                                                            int B, int L) {
   using BF = Form<VAR>;
   using T = typename BF::Entry;
-  constexpr int LOG = ilog2(M), S = M + 1;
+  constexpr int LOG = ilog2(M), S = kStride<M>, C = kClass<M>, W = M + S;
+  static_assert(kThreads / M + 1 <= 16, "one named barrier per slab group");
   extern __shared__ __align__(16) unsigned char smem[];
   T* ta = reinterpret_cast<T*>(smem);
   T* tb = ta + LOG * M;
-  uint32_t* d = reinterpret_cast<uint32_t*>(tb + LOG * M);
-  const int l = blockIdx.x % L;
-  const int b0 = (blockIdx.x / L) * kRowsPerBlock;
-  stage_table<M>(ta, sa + static_cast<size_t>(l) * 2 * LOG * M);
-  stage_table<M>(tb, sb + static_cast<size_t>(l) * 2 * LOG * M);
-  const BF bf{__ldg(primes + l)};
+  uint32_t* slab = reinterpret_cast<uint32_t*>(tb + LOG * M) + threadIdx.x / M * C * W;
+  const SlabWalk w = slab_walk<M>(B, L);
+  stage_table<M>(ta, sa + static_cast<size_t>(w.l) * 2 * LOG * M);
+  stage_table<M>(tb, sb + static_cast<size_t>(w.l) * 2 * LOG * M);
+  const BF bf{__ldg(primes + w.l)};
   __syncthreads();
-  const int j = threadIdx.x;
-  uint32_t a[M];
-  const int b1 = min(B, b0 + kRowsPerBlock);
+  const int t = threadIdx.x % M;  // first half: column t
+  const int beta = t % S;         // second half: slab row t / S, columns beta + S j
+  uint32_t* row = slab + t / S * W + beta;
+  uint32_t a[C], next[C];
+  if (w.first < w.end) load_class<M>(next, x + slab_at<M>(w.first, w.l, L, t));
 #pragma unroll 1
-  for (int b = b0; b < b1; ++b) {
-    const size_t base = (static_cast<size_t>(b) * L + l) * M * M;
+  for (int s = w.first; s < w.end; s += w.stride) {
 #pragma unroll
-    for (int r = 0; r < M; ++r) a[r] = __ldg(x + base + r * M + j);
-    run_half<M, 0>(a, ta, bf);
+    for (int i = 0; i < C; ++i) a[i] = next[i];
+    // the next slab's loads are in flight while this one's stages run
+    if (s + w.stride < w.end) load_class<M>(next, x + slab_at<M>(s + w.stride, w.l, L, t));
+    const int alpha = s % S;
+    run_half<M, 0>(a, ta + alpha, bf);
 #pragma unroll
-    for (int r = 0; r < M; ++r) d[r * S + j] = a[r];
-    __syncthreads();  // the transpose: thread j now takes row j
+    for (int i = 0; i < C; ++i) slab[i * W + t] = a[i];
+    slab_sync<M>();  // the transpose: row t / S of class beta
 #pragma unroll
-    for (int c = 0; c < M; ++c) a[c] = d[j * S + c];
-    run_half<M, 0>(a, tb, bf);
+    for (int j = 0; j < C; ++j) a[j] = row[S * j];
+    run_half<M, 0>(a, tb + beta, bf);
 #pragma unroll
-    for (int c = 0; c < M; ++c) d[j * S + c] = a[c];
-    __syncthreads();  // and back: column j again
+    for (int j = 0; j < C; ++j) row[S * j] = a[j];
+    slab_sync<M>();  // and back: column t again
+    uint32_t* out = y + slab_at<M>(s, w.l, L, t);
 #pragma unroll
-    for (int r = 0; r < M; ++r) y[base + r * M + j] = d[r * S + j];
-    __syncthreads();
+    for (int i = 0; i < C; ++i) out[i * S * M] = slab[i * W + t];
+    // no third barrier: the next slab's column writes touch only column t,
+    // which only this thread reads here
   }
 }
 
 template <int M, int VAR>
 cudaError_t launch(const uint32_t* x, uint32_t* y, const uint32_t* sa, const uint32_t* sb,
                    const uint32_t* primes, int B, int L, cudaStream_t s) {
-  static bool attr[kMaxDevices] = {};
+  static int found[kMaxDevices] = {};
   constexpr size_t smem = smem_bytes<M, VAR>();
-  cudaError_t err = allow_smem(ntt_lazy_kernel<M, VAR>, smem, attr);
+  static_assert(smem <= 48 * 1024, "the probe needs no opt-in shared memory");
+  int resident = 0;
+  const cudaError_t err = resident_blocks(ntt_lazy_kernel<M, VAR>, smem, found, &resident);
   if (err != cudaSuccess) return err;
-  ntt_lazy_kernel<M, VAR><<<blocks_for(B, L), M, smem, s>>>(x, y, sa, sb, primes, B, L);
+  ntt_lazy_kernel<M, VAR><<<slab_grid<M>(resident, B, L), kThreads, smem, s>>>(x, y, sa, sb,
+                                                                               primes, B, L);
   return cudaGetLastError();
 }
 

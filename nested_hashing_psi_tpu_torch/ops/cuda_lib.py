@@ -16,6 +16,7 @@ import glob
 import os
 import shutil
 import subprocess
+import tempfile
 import threading
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -97,6 +98,16 @@ def build(verbose: bool = False) -> str:
         os.remove(o)
     os.replace(tmp, LIB_PATH)
     return out
+
+
+def ptxas_report(names: list[str]) -> str:
+    """The ``-Xptxas -v`` report (registers and spills of every kernel
+    instance) of the named csrc/ sources, compiled as ``build`` compiles
+    them into a temporary directory; the library is not touched."""
+    nvcc = find_nvcc()
+    with tempfile.TemporaryDirectory() as tmp:
+        return _run_all([[nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c", os.path.join(CSRC, nm),
+                          "-o", os.path.join(tmp, f"{nm}.o")] for nm in names])
 
 
 def _stale() -> bool:

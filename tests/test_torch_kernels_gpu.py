@@ -596,6 +596,8 @@ def test_simple_fhe_protocol_on_cuda_small_ring(cuda, bgv):
 from nested_hashing_psi_tpu_torch.benchmarks import bench_ntt_anatomy  # noqa: E402
 from nested_hashing_psi_tpu_torch.benchmarks import bench_ntt_lazy_probe  # noqa: E402
 from nested_hashing_psi_tpu_torch.benchmarks import bench_vpu_ops  # noqa: E402
+from nested_hashing_psi_tpu_torch.benchmarks import common as bench_common  # noqa: E402
+from nested_hashing_psi_tpu_torch.ops import cuda_lib  # noqa: E402
 from nested_hashing_psi_tpu_torch.ops.split_plan import SplitNTTPlan  # noqa: E402
 
 
@@ -633,10 +635,10 @@ def _probe_plan_and_input(n, rows, seed, cuda, L=2):
 
 
 @pytest.mark.parametrize("rows", [5, 9])
-@pytest.mark.parametrize("n", [1 << 10, 1 << 12])
+@pytest.mark.parametrize("n", [1 << 10, 1 << 12, 1 << 14])
 @pytest.mark.parametrize("which", bench_ntt_lazy_probe.VARIANTS)
 def test_lazy_probe_kernel_matches_plain(cuda, which, n, rows):
-    """Rows not a multiple of the kernel's rows per block."""
+    """Slab counts that leave a block's slab groups unevenly loaded."""
     plan, x = _probe_plan_and_input(n, rows, seed=n + rows, cuda=cuda)
     got = bench_ntt_lazy_probe.lazy_probe(x, plan, which)
     torch.cuda.synchronize()
@@ -644,7 +646,7 @@ def test_lazy_probe_kernel_matches_plain(cuda, which, n, rows):
 
 
 @pytest.mark.parametrize("rows", [5, 9])
-@pytest.mark.parametrize("n", [1 << 10, 1 << 12])
+@pytest.mark.parametrize("n", [1 << 10, 1 << 12, 1 << 14])
 @pytest.mark.parametrize("which", bench_ntt_anatomy.VARIANTS)
 def test_anatomy_probe_kernel_matches_plain(cuda, which, n, rows):
     plan, x = _probe_plan_and_input(n, rows, seed=n + rows + 1, cuda=cuda, L=3)
@@ -679,6 +681,36 @@ def test_vpu_ops_chain_not_folded(cuda, mix):
     instructions one application can take (the compiler folded nothing)."""
     bench_vpu_ops.vpu_ops(torch.zeros(8, dtype=torch.int32, device=cuda), mix)  # builds
     assert bench_vpu_ops.sass_per_application(mix)["arith"] >= bench_vpu_ops.MIN_ARITH[mix]
+
+
+@pytest.fixture(scope="module")
+def probe_ptxas():
+    """Registers and spills of every probe kernel instance (a compile of
+    the two sources with ``-Xptxas -v``)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return bench_common.ptxas_instances(
+        cuda_lib.ptxas_report(["probe_ntt_lazy.cu", "probe_ntt_anatomy.cu"]))
+
+
+@pytest.mark.parametrize("m", bench_ntt_lazy_probe.KERNEL_M)
+@pytest.mark.parametrize("which", [*bench_ntt_lazy_probe.VARIANTS, "stages"])
+def test_redesigned_probe_instances_do_not_spill(probe_ptxas, which, m):
+    mod = bench_ntt_anatomy if which == "stages" else bench_ntt_lazy_probe
+    regs = bench_common.instance(probe_ptxas, mod.kernel_name(m, which))
+    assert regs["spill_stores"] == 0 and regs["spill_loads"] == 0, regs
+    assert 0 < regs["registers"] <= 255
+
+
+@pytest.mark.parametrize("which", [*bench_ntt_lazy_probe.VARIANTS, "stages"])
+def test_probe_butterflies_not_folded(cuda, which):
+    """The slab loop holds, per butterfly, at least the fewest instructions
+    a butterfly of the form can take."""
+    mod = bench_ntt_anatomy if which == "stages" else bench_ntt_lazy_probe
+    cuda_lib.get_lib()  # builds
+    plan = SplitNTTPlan(1 << 14, ntt_primes(1, 31, 1 << 15))
+    s = bench_ntt_lazy_probe.sass_per_butterfly(mod.kernel_name(128, which), plan)
+    assert s["arith"] >= mod.MIN_ARITH[which]
 
 
 def test_probe_k1_line_holds_k1_against_plain(cuda):

@@ -17,6 +17,9 @@ from jax.experimental.pallas import tpu as pltpu
 from nested_hashing_psi_tpu.ops.ntt_pallas import SplitNTTPlan as JSplitPlan
 from nested_hashing_psi_tpu_torch.benchmarks import bench_ntt_anatomy as t_anat
 from nested_hashing_psi_tpu_torch.benchmarks import bench_ntt_lazy_probe as t_lazy
+from nested_hashing_psi_tpu_torch.benchmarks import bench_vpu_ops as t_vpu
+from nested_hashing_psi_tpu_torch.benchmarks import common as t_common
+from nested_hashing_psi_tpu_torch.benchmarks import u32
 from nested_hashing_psi_tpu_torch.ops.primes import ntt_primes
 from nested_hashing_psi_tpu_torch.ops.split_plan import SplitNTTPlan
 
@@ -144,3 +147,119 @@ def test_main_cuda_without_gpu_raises(module):
         pytest.skip("a GPU is present: the cuda run is the card's (chip_smoke.py)")
     with pytest.raises(RuntimeError, match="needs a GPU"):
         module.main([])
+
+
+# ---- the class structure the kernels' layout rests on, and the bounds ----
+
+# S, the least pair distance of a half at tile side M: rows (and, in A2,
+# columns) that differ modulo S never meet in a butterfly
+CLASS_STRIDE = {32: 4, 64: 8, 128: 8}
+
+
+def _class_mask(which, m, r, c):
+    rows, cols = np.arange(m)[:, None], np.arange(m)[None, :]
+    S = CLASS_STRIDE[m]
+    if which == "moves":  # elementwise
+        return (rows == r) & (cols == c)
+    if which == "stages":  # its column's rows r mod S
+        return (rows % S == r % S) & (cols == c)
+    return (rows % S == r % S) & (cols % S == c % S)  # A2: the (M/S) x (M/S) subtile
+
+
+@pytest.mark.parametrize("n", [1 << 10, 1 << 12, 1 << 14])
+@pytest.mark.parametrize("which", [*t_lazy.VARIANTS, *t_anat.VARIANTS])
+def test_one_input_changes_only_its_class(which, n):
+    """Changing one input of the plain version changes no output outside
+    its class, the independence that lets a kernel thread hold M / S
+    residues instead of a column, and every output of it, but in A2 at
+    M = 32: there some outputs of the subtile can stay unchanged (s2_v2
+    holds twiddles of +-1, 62 of its 160 entries at n = 2^10, and A2's
+    second half meets the pairs at distance 16 and 8 twice), 32 to 64 of
+    its 64 for these inputs."""
+    ps = ntt_primes(1, 31, 2 * n)
+    plan = SplitNTTPlan(n, ps)
+    m = plan.m1
+    assert u32.class_stride(m) == CLASS_STRIDE[m]
+    fn = t_lazy.lazy_probe_plain if which in t_lazy.VARIANTS else t_anat.anatomy_probe_plain
+    rng = np.random.default_rng(n + len(which))
+    x = rng.integers(0, ps[0], size=(1, 1, n), dtype=np.int64)
+    base = fn(torch.from_numpy(x.astype(np.int32)), plan, which).reshape(m, m)
+    for r, c in rng.integers(0, m, size=(3, 2)):
+        x2 = x.copy()
+        x2[0, 0, r * m + c] = (x2[0, 0, r * m + c] + rng.integers(1, ps[0])) % ps[0]
+        changed = (fn(torch.from_numpy(x2.astype(np.int32)), plan, which).reshape(m, m)
+                   != base).numpy()
+        mask = _class_mask(which, m, r, c)
+        assert changed[r, c] and not (changed & ~mask).any(), (r, c)
+        if not (which in t_lazy.VARIANTS and m == 32):
+            assert np.array_equal(changed, mask), (r, c)
+
+
+@pytest.mark.parametrize("m, per_thread", [(32, 40), (64, 48), (128, 112)])
+def test_butterflies_per_thread_follow_the_class(m, per_thread):
+    """(log2 m1 + log2 m2) stages of M / (2 S) butterflies each."""
+    plan = SplitNTTPlan(m * m, ntt_primes(1, 31, 2 * m * m))
+    assert t_lazy.butterflies_per_thread(plan) == per_thread
+
+
+def test_sass_per_butterfly_divides_the_slab_loop(monkeypatch):
+    """A hand-made loop of 112 IMAD.HI, 224 IMAD and 448 IADD3 at M = 128
+    (one thread's slab): 1, 2 and 4 per butterfly, 4 FMA-pipe slots."""
+    body = ([(16 * i, "IMAD.HI.U32", "") for i in range(112)]
+            + [(16 * (112 + i), "IMAD", "") for i in range(224)]
+            + [(16 * (336 + i), "IADD3", "") for i in range(448)])
+    instrs = [(0x0, "S2R", ""), *[(a + 0x100, op, r) for a, op, r in body]]
+    instrs.append((0x100 + 16 * 784, "BRA", " 0x100"))
+    monkeypatch.setattr(t_lazy.common, "find_function", lambda fragment: instrs)
+    plan = SplitNTTPlan(1 << 14, ntt_primes(1, 31, 1 << 15))
+    s = t_lazy.sass_per_butterfly(t_lazy.kernel_name(128, "exact"), plan)
+    assert (s["fma"], s["fma_slots"], s["alu"], s["arith"]) == (3, 4, 4, 7)
+
+
+ROWS_FULL, N_FULL = 512 * 6, 1 << 14
+BUTTERFLIES = ROWS_FULL * (N_FULL // 2) * 14
+BYTES_MS = ROWS_FULL * N_FULL * 8 / 3.35e12 * 1e3
+
+
+@pytest.mark.parametrize("sass, ops_per_butterfly, by", [
+    ({"fma_slots": 5.22, "alu": 4.01}, 5.22, "bytes"),      # the FMA pipe is the busier
+    ({"fma_slots": 3.0, "alu": 6.0}, 6.0, "operations"),     # the ALU is the busier
+    ({"fma_slots": 10.21, "alu": 10.03}, 10.21, "operations"),
+], ids=["fma_busier_bytes_bound", "alu_busier", "presplit"])
+def test_bound_counts_the_busier_pipe(sass, ops_per_butterfly, by):
+    """Operations: n/2 log2 n butterflies per row at the busier 64-lane
+    pipe's slots (bench_vpu_ops.PIPE_OPS_S); bytes: each row read and
+    written once, the tables once."""
+    t_ops = BUTTERFLIES * ops_per_butterfly / t_vpu.PIPE_OPS_S * 1e3
+    assert t_lazy.pipe_ms(ROWS_FULL, N_FULL, sass) == pytest.approx(t_ops, rel=1e-12)
+    ms, got_by = t_lazy.bound_ms(ROWS_FULL, N_FULL, sass, 28672)
+    assert got_by == by
+    t_bytes = BYTES_MS + 28672 / 3.35e12 * 1e3
+    assert ms == pytest.approx(max(t_ops, t_bytes), rel=1e-12)
+    parts = t_lazy.bound_by_pipe(ROWS_FULL, N_FULL, sass, 28672)
+    assert parts == {"fma_slots_per_butterfly": sass["fma_slots"], "alu_per_butterfly": sass["alu"],
+                     "operations_ms": pytest.approx(t_ops), "bytes_ms": pytest.approx(t_bytes)}
+
+
+def test_bound_without_butterflies_is_bytes():
+    """A3's moves: no operations, its bytes and the twiddles'."""
+    ms, by = t_lazy.bound_ms(ROWS_FULL, N_FULL, None, 1 << 20)
+    assert by == "bytes" and ms == pytest.approx(BYTES_MS + (1 << 20) / 3.35e12 * 1e3)
+
+
+def test_ptxas_instances_reads_registers_and_spills():
+    report = "\n".join([
+        "ptxas info    : Compiling entry function '_ZN1a15ntt_lazy_kernelILi128ELi0EEEv' for 'sm_90a'",
+        "ptxas info    : Function properties for _ZN1a15ntt_lazy_kernelILi128ELi0EEEv",
+        "    0 bytes stack frame, 8 bytes spill stores, 12 bytes spill loads",
+        "ptxas info    : Used 40 registers, used 1 barriers, 400 bytes cmem[0]",
+        "ptxas info    : Compiling entry function '_ZN1a21anatomy_stages_kernelILi128EEEv' for 'sm_90a'",
+        "ptxas info    : Used 43 registers, 400 bytes cmem[0]",
+    ])
+    got = t_common.ptxas_instances(report)
+    assert t_common.instance(got, t_lazy.kernel_name(128, "exact")) == {
+        "registers": 40, "spill_stores": 8, "spill_loads": 12}
+    assert t_common.instance(got, t_anat.kernel_name(128, "stages")) == {
+        "registers": 43, "spill_stores": 0, "spill_loads": 0}
+    with pytest.raises(RuntimeError, match="0 kernels"):
+        t_common.instance(got, t_anat.kernel_name(128, "moves"))
