@@ -93,6 +93,20 @@
    launch K1 and K2 where its step runs them; per step it prints the ms
    per query, the bytes each rank sent, the launches per rank and the
    transport. The kernel line's ``parallel_launches`` sum both runs.
+9. [bench] (run after 6, before 7 and 8, in a process of its own): the
+   port's bench and eval tools (benchmarks/ of the port) at full size,
+   with the K1 and K2 counts set to 0 just before and read just after
+   (the kernel line's ``bench_wrapper_calls``: calls of the wrappers; a
+   CUDA graph's capture counts each of its calls once, its replays not):
+   bench.py's headline (K1's limb-transforms/s at (512, 6, 16384) against
+   3.35 TB/s, the plain NTT, K1 in L2, and the 2^20 x 2048 online query in
+   four readings, Q = 32 with query 0's packed device mask held to the
+   host decrypt), profile_online's six parts and hps_parts' eight with
+   their kernel counts, bench_pie_online at 2^20 and 2^24 (K2 held
+   bit-exact to its plain version at each table's shape, P = 14 and P =
+   58, then its share of its bound at P = 58, the kernel line's
+   ``p58_*``) and bench_ntt_kernel, whose chained K1 is held to the plain
+   chain.
 
 The A1 probe's bound counts each mix's busier pipe (bench_vpu_ops.ops_per_app:
 64 lanes per clock per SM each, a wide product two FMA-pipe slots); the
@@ -120,6 +134,7 @@ import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+CUDA = "cuda"  # the device the timing helpers take
 MAIN_FLAGS = [
     "-F", "--batched", "-B", "32", "-S", "1048576", "-C", "2048", "-I", "1024",
     "-e", "8022", "-E", "12", "-b", "12", "-k", "2", "-K", "2",
@@ -165,27 +180,6 @@ ELGAMAL_RUNS = (
                              "--device", "cuda"]),
 )
 
-# H100 SXM peaks for the bounds: 3.35 TB/s of HBM3 and 1,979 T int8
-# tensor-core ops/s (NVIDIA's data sheet). 32-bit integer instructions run
-# on two pipes of 64 lanes per clock per SM (CUDA C Programming Guide,
-# compute capability 9.0): multiplies on the FMA pipe, min/max and the
-# fused add-min on the ALU pipe, adds on either; the four schedulers issue
-# one warp instruction per clock each, 128 lanes per clock per SM in all,
-# which a mix balanced over the two pipes reaches: 128 x 132 SMs x 1.98 GHz
-# = 33.5 T ops/s.
-HBM_BYTES_S = 3.35e12
-INT8_OPS_S = 1979e12
-INT32_OPS_S = 128 * 132 * 1.98e9
-# A butterfly: a Shoup product (IMAD.HI, IMAD, IMAD on the FMA pipe; a
-# VIADDMNMX conditional subtract), an add_mod and a sub_mod (an IADD3 and a
-# VIADDMNMX each): 8 instructions, 3 of them tied to the FMA pipe and 3 to
-# the ALU pipe, so they balance.
-BUTTERFLY_OPS = 8
-SHOUP_OPS = 4       # the inverse's n^-1: a second Shoup product in its last stage
-# A 32x32->64 multiply (IMAD.WIDE, IMAD.HI) takes two slots of the FMA pipe,
-# which has half of the 128 lanes: INT32_OPS_S / 4 = 8.4 T/s, as the probe A1
-# measured it (benchmarks/bench_vpu_ops.py, mix mulhi: 8.3 T/s).
-WIDE_MUL_S = INT32_OPS_S / 4
 # The nine K1 launches of one server query at L = 6, mul_limbs 5,
 # ship_limbs 4, 8 aux limbs, D = 12 (fhe/bfv.py hps_mul_relin_rescaled and
 # _hps_core, fhe/bgv.py _key_switch_coeffs): (label, inverse, leading
@@ -208,95 +202,18 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
-def time_ms(fn, iters: int) -> float:
-    """Mean device time of fn() over iters launches (CUDA events, warmed)."""
-    import torch
-
-    for _ in range(2):
-        fn()
-    torch.cuda.synchronize()
-    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / iters
-
-
-def graph_ms(fn, iters: int = 20) -> float:
-    """Mean device time of fn() replayed from a CUDA graph of iters calls:
-    the kernels' time without the host's pace between launches."""
-    import torch
-
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):  # warm up (and set attributes) outside the capture
-        for _ in range(2):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(iters):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(5):
-        graph.replay()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / (5 * iters)
-
-
-def wall_ms(fn, iters: int) -> float:
-    """Mean host-clock time of fn() ending in a synchronize (warmed once)."""
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        fn()
-    torch.cuda.synchronize()
-    return (time.perf_counter() - t0) * 1e3 / iters
-
-
-def bound(ops: float, ops_per_s: float, nbytes: float) -> tuple[float, str]:
-    """(least ms, "operations" or "bytes"): the larger of the two times."""
-    t_ops, t_bytes = ops / ops_per_s * 1e3, nbytes / HBM_BYTES_S * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
-
-
-def k1_bound(rows: int, L: int, n: int, inverse: bool) -> tuple[float, str]:
-    """K1 on rows x n residues: n/2 log n butterflies per row (plus, for the
-    inverse, n/2 Shoup products for the n^-1 scale folded into its last
-    stage); each row read and written once, plus the twiddle pairs of the L
-    primes."""
-    logn = n.bit_length() - 1
-    ops = rows * (n // 2) * (logn * BUTTERFLY_OPS + (SHOUP_OPS if inverse else 0))
-    return bound(ops, INT32_OPS_S, rows * n * 8 + L * n * 8 + L * 12)
-
-
-def k2_bound(H: int, D: int, P: int, L: int, N: int, acc: bool = False) -> tuple[float, str]:
-    """K2: index (H,P,2,L,N) and the P table positions read once, out
-    (H,D,2,L,N) written once (with acc, also read once); its operations are
-    the two exact 32x32->64 products per table word at WIDE_MUL_S (each
-    output's one reduction and the adds run beside them)."""
-    out = H * D * 2 * L * N
-    return bound(2 * H * D * P * L * N, WIDE_MUL_S,
-                 4 * (H * P * 2 * L * N + H * D * P * L * N + out * (2 if acc else 1)) + 8 * L)
-
-
-def k3_bound(rows: int, L: int, n: int, m1: int, digits: int) -> tuple[float, str]:
-    """K3: two digit-stacked matrix stages per row, digits^2 * n * (m1 + m2)
-    int8 multiply-adds (2 ops each); rows read and written once plus the
-    int8 digit matrices and twiddles of the L primes."""
-    m2 = n // m1
-    macs = rows * digits * digits * n * (m1 + m2)
-    table_bytes = L * digits * digits * (m1 * m1 + m2 * m2) + L * n * 8
-    return bound(2 * macs, INT8_OPS_S, rows * n * 8 + table_bytes)
+if ROOT not in sys.path:  # behind a tree that k2_sweep.py put first
+    sys.path.append(ROOT)
+try:  # the card's peaks, the kernels' bounds and the timing, shared with the port's tools
+    from nested_hashing_psi_tpu_torch.benchmarks.card import (
+        HBM_BYTES_S,
+        k1_bound,
+        k2_bound,
+        k3_bound,
+    )
+    from nested_hashing_psi_tpu_torch.benchmarks.timing import graph_ms, time_ms, wall_ms
+except ImportError as e:
+    fail(f"the port is not importable here ({e}); run from the repository root")
 
 
 def ptxas_summary(instances: dict) -> str:
@@ -390,7 +307,7 @@ def int8_products_ms(mplan, x, D: int) -> float:
     def run():
         for (a, bt), o in zip(calls, outs):
             torch._int_mm(a, bt.t(), out=o)
-    return graph_ms(run, iters=10)
+    return graph_ms(run, CUDA, iters=10)
 
 
 PAR_WORLD = 4          # ranks sharing the one card through the staged gloo transport
@@ -590,6 +507,108 @@ def parallel_phase(runs: dict, smi_line: str) -> dict:
     return out
 
 
+BENCH_PIE_CONFIGS = ("2^20", "2^24")  # bench_pie_online's sweep rows run in [bench]
+
+
+def bench_phase(smi_line: str) -> dict:
+    """[bench]: the port's bench and eval tools at full size, the K1 and K2
+    wrapper calls counted from 0 (a CUDA graph's capture counts each of its
+    calls once, its replays not): the headline bench (K1 at (512, 6, 16384),
+    the plain NTT and K1 in L2, the 2^20 x 2048 online query in four
+    readings with Q = 32, query 0's packed mask held to the host decrypt),
+    profile_online's six parts and hps_parts' eight on the same PIE,
+    bench_pie_online at 2^20 and 2^24 (K2 held bit-exact to its plain
+    version at each table's shape, then its share of its bound, P = 58 at
+    2^24) and bench_ntt_kernel at (512, 6, 16384), whose chained output is
+    held to the plain chain. Fails on any mismatch or if the phase called
+    no K1 or no K2."""
+    import torch
+
+    from nested_hashing_psi_tpu_torch.benchmarks import (
+        bench,
+        bench_ntt_kernel,
+        bench_pie_online,
+        profile_online,
+        small_pie,
+    )
+    from nested_hashing_psi_tpu_torch.ops import ntt_cuda, pie_kernels
+    from nested_hashing_psi_tpu_torch.ops.ntt import NTTPlan, intt, ntt
+    from nested_hashing_psi_tpu_torch.ops.primes import ntt_primes
+
+    dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+    print(f"[bench] the port's bench and eval tools on {smi_line}", flush=True)
+    ntt_cuda.reset_launches()
+    pie_kernels.reset_launches()
+    rates = bench.ntt_rates(dev)
+    built = small_pie.bench_row(device=dev)
+    try:
+        pie = bench.pie_online(built, dev)
+    except RuntimeError as e:  # query 0's packed mask differs from the host decrypt
+        fail(f"[bench] {e}")
+    line = bench.headline(rates, pie, dev)
+    print(f"[bench] {json.dumps(line)}", flush=True)
+    rows = {"profile_online": profile_online.main_rows(built, dev),
+            "hps_parts": profile_online.hps_rows(built, dev)}
+    for tag, res in rows.items():
+        profile_online.print_rows(tag, res)
+    profile_online.print_sum(rows["profile_online"])
+    del built
+    torch.cuda.empty_cache()
+    pie_runs = {}
+    for c in BENCH_PIE_CONFIGS:
+        try:
+            pie_runs[c] = bench_pie_online.run(c, dev)
+        except RuntimeError as e:  # K2 differs from its plain version
+            fail(f"[bench] bench_pie_online {c}: {e}")
+        torch.cuda.empty_cache()
+    ntt_runs = bench_ntt_kernel.main([])
+    ps = ntt_primes(bench_ntt_kernel.LIMBS, 31, 2 * bench_ntt_kernel.N)
+    plan = NTTPlan(bench_ntt_kernel.N, ps)
+    x = torch.randint(0, min(ps), (512, bench_ntt_kernel.LIMBS, bench_ntt_kernel.N),
+                      device=dev, dtype=torch.int32)
+    for inverse, plain in ((False, ntt), (True, intt)):
+        got = bench_ntt_kernel.run_chain(x, plan, inverse, "auto", 2)
+        want = plain(plain(x, plan), plan)  # the plain version, on the card
+        if not torch.equal(got, want):
+            fail(f"[bench] bench_ntt_kernel's chained K1 (inverse={inverse}) differs from the "
+                 "plain chain")
+    del x, got, want
+    torch.cuda.synchronize()
+    calls = {"ntt_fwd": ntt_cuda.launches["ntt"], "ntt_inv": ntt_cuda.launches["intt"],
+             "pie_ip": pie_kernels.launches}
+    out = {"wrapper_calls": calls, "phase_s": time.perf_counter() - t_phase, "headline": line,
+           "profile_online": rows["profile_online"], "hps_parts": rows["hps_parts"],
+           "bench_pie_online": pie_runs, "bench_ntt_kernel": ntt_runs}
+    print(f"[bench] K1 and K2 wrapper calls {calls} (CUDA graph replays not counted); phase "
+          f"{out['phase_s']:.2f} s", flush=True)
+    if min(calls.values()) <= 0:
+        fail(f"[bench] the phase did not launch K1 and K2: {calls}")
+    return out
+
+
+def bench_phase_fresh(smi_line: str) -> dict:
+    """``bench_phase`` in a fresh process (its lines passed through, its
+    result returned; any failure there fails this run). In a process that
+    had already traced the online steps, torch.profiler recorded no kernel
+    for the bench's rows on an H100 (torch 2.11), and their kernel counts
+    come from the profiler."""
+    code = (f"import json, sys; sys.path.insert(0, {ROOT!r}); import chip_smoke; "
+            f"out = chip_smoke.bench_phase({smi_line!r}); "
+            "print('[bench] result ' + json.dumps(out), flush=True)")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                          text=True, timeout=900)
+    lines = proc.stdout.splitlines()
+    sys.stdout.write("".join(f"{line}\n" for line in lines
+                             if not line.startswith("[bench] result ")))
+    sys.stdout.flush()
+    result = [line for line in lines if line.startswith("[bench] result ")]
+    if proc.returncode != 0 or not result:
+        sys.stderr.write(proc.stderr[-6000:])
+        fail(f"the [bench] phase failed in its own process (exit {proc.returncode})")
+    return json.loads(result[-1][len("[bench] result "):])
+
+
 def max_err(got, want, name: str) -> int:
     import torch
 
@@ -602,8 +621,8 @@ def max_err(got, want, name: str) -> int:
 def compare(name, kernel_fn, plain_fn, iters=20, plain_iters=3):
     """Run kernel and plain version on the same inputs; exact comparison."""
     err = max_err(kernel_fn(), plain_fn(), name)
-    ms = time_ms(kernel_fn, iters)
-    plain_ms = time_ms(plain_fn, plain_iters)
+    ms = time_ms(kernel_fn, CUDA, iters)
+    plain_ms = time_ms(plain_fn, CUDA, plain_iters)
     print(f"[kernel] {name}: max_abs_err {err} kernel {ms:.4f} ms plain "
           f"{plain_ms:.4f} ms", flush=True)
     if err != 0:
@@ -997,7 +1016,7 @@ def main() -> None:
     # first K1 timing of a fresh process read up to 1.5x slower otherwise)
     warm_plan = NTTPlan(N, q)
     warm = residues((2, 12, 2, L, N), q)
-    time_ms(lambda: ntt_cuda.ntt(warm, warm_plan), 500)
+    time_ms(lambda: ntt_cuda.ntt(warm, warm_plan), CUDA, 500)
     del warm
     # the HPS operand transforms: (2 operands, D = 12 depths, 2 components)
     for base, ps in (("q", q), ("aux", aux)):
@@ -1029,10 +1048,10 @@ def main() -> None:
         for form, code in (("whole-row", ntt_cuda.WHOLE_ROW), ("split", ntt_cuda.SPLIT)):
             ffn = lambda: ntt_cuda._launch(x, plan, inverse, form=code)  # noqa: E731
             err = max(err, max_err(ffn(), want, f"K1 launch {label}, {form}"))
-            forms[form] = graph_ms(ffn)
+            forms[form] = graph_ms(ffn, CUDA)
         if err != 0:
             fail(f"K1 launch {label} {shape}: kernel disagrees with plain (max_abs_err {err})")
-        ms, dev_ms = time_ms(kfn, 50), graph_ms(kfn)
+        ms, dev_ms = time_ms(kfn, CUDA, 50), graph_ms(kfn, CUDA)
         rows = x.numel() // N
         b_ms, b_by = k1_bound(rows, len(ps), N, inverse)
         k1_query["ms"] += ms
@@ -1087,9 +1106,9 @@ def main() -> None:
     if err != 0 or got.data_ptr() != acc.data_ptr():
         fail(f"K2 with acc: max_abs_err {err}, in place {got.data_ptr() == acc.data_ptr()}")
     ms = time_ms(lambda: pie_kernels.indexed_inner_product(
-        idx_s, pt, tb["p_u32"], tb["pinv_u32"], p0=3, acc=acc), 20)
+        idx_s, pt, tb["p_u32"], tb["pinv_u32"], p0=3, acc=acc), CUDA, 20)
     plain_ms = time_ms(lambda: pie_kernels.indexed_inner_product_plain(
-        idx_s, pt, tb["p"], tb["pinv"], p0=3, acc=acc0), 2)
+        idx_s, pt, tb["p"], tb["pinv"], p0=3, acc=acc0), CUDA, 2)
     results["pie_ip_acc"] = (err, ms, plain_ms) + k2_bound(H, D, 3, L, N, acc=True)
     print(f"[kernel] K2 position sum over positions [3, 6) added to acc in place: max_abs_err "
           f"{err} kernel {ms:.4f} ms plain {plain_ms:.4f} ms", flush=True)
@@ -1101,7 +1120,7 @@ def main() -> None:
         raw_ms = time_ms(lambda: lib.nhpsi_pie_ip(
             ii.data_ptr(), view.data_ptr(), None, out.data_ptr(), tb["p_u32"].data_ptr(),
             tb["pinv_u32"].data_ptr(), H, D, ii.shape[1], L, N, ii.stride(0),
-            *view.stride()[:4], stream), 20)
+            *view.stride()[:4], stream), CUDA, 20)
         err, ms, _, b_ms, b_by = results[key]
         print(f"[kernel] K2 {key}: wrapper {ms:.4f} ms, launch alone {raw_ms:.4f} ms, "
               f"bound {b_ms:.4f} ms ({b_by}), share of the bound {b_ms / raw_ms:.3f} "
@@ -1120,7 +1139,7 @@ def main() -> None:
         if err != 0:
             fail(f"K2 at L = {Ls}: kernel disagrees with its plain version (max_abs_err {err})")
         ms = time_ms(lambda: pie_kernels.indexed_inner_product(
-            ii, tt, tbs["p_u32"], tbs["pinv_u32"]), 20)
+            ii, tt, tbs["p_u32"], tbs["pinv_u32"]), CUDA, 20)
         b_ms, b_by = k2_bound(H, D, P, Ls, N)
         k2_sweep[Ls] = ms
         print(f"[k2_sweep] ({H},{D},{P},{Ls},{N}): max_abs_err 0, kernel {ms:.4f} ms, bound "
@@ -1161,7 +1180,7 @@ def main() -> None:
         err = max_err(kfn(), want, f"K1 {label}")
         if err != 0:
             fail(f"K1 {label}: kernel disagrees with plain (max_abs_err {err})")
-        ms = time_ms(kfn, 10)
+        ms = time_ms(kfn, CUDA, 10)
         b_ms, b_by = k1_bound(x.numel() // N, len(ps), N, inverse)
         print(f"[k1_bgv] {label}: {'inverse' if inverse else 'forward'} "
               f"{tuple(x.shape)}: max_abs_err 0, kernel {ms:.4f} ms, bound {b_ms:.4f} ms "
@@ -1178,9 +1197,10 @@ def main() -> None:
     if err != 0 or got.scale != want.scale:
         fail(f"mod_switch on cuda differs from the port on the CPU (max_abs_err {err}, "
              f"scale {got.scale} vs {want.scale})")
+    dev_ms = time_ms(lambda: ms_dev.mod_switch(ct), CUDA, 10)
     print(f"[mod_switch] (12,2,6,{N}) -> {tuple(got.data.shape)}: cuda bit-equal to the "
-          f"CPU port, scale {got.scale}; cuda {time_ms(lambda: ms_dev.mod_switch(ct), 10):.4f} "
-          f"ms (CUDA events), CPU {cpu_ms:.1f} ms", flush=True)
+          f"CPU port, scale {got.scale}; cuda {dev_ms:.4f} ms (CUDA events), CPU "
+          f"{cpu_ms:.1f} ms", flush=True)
     del ct, got, want
 
     # ---- K3: its own phase (no caller on the protocol path) ------------
@@ -1209,7 +1229,7 @@ def main() -> None:
              lambda: ntt_mxu.intt_mxu_plain(y, mplan), lambda: ntt_cuda.intt(y, plan)),
         ):
             err, ms, plain_ms = compare(f"K3 {name} NTT, {shape}", kfn, pfn)
-            k1_ms = time_ms(k1fn, 20)
+            k1_ms = time_ms(k1fn, CUDA, 20)
             b_ms, b_by = k3_bound(x.numel() // N, plan.L, N, mplan.m1, ntt_mxu.DIGITS)
             print(f"[kernel] K3 {name} NTT, {shape}: max_abs_err vs K1 {e_k1}; "
                   f"K3 {ms:.4f} ms (share of the {b_ms:.4f} ms bound {b_ms / ms:.3f}), "
@@ -1337,9 +1357,9 @@ def main() -> None:
     mask_host = np.asarray(slots, dtype=object) == 0
     if mask_dev.shape != mask_host.shape or not (mask_dev == mask_host).all():
         fail("the device decrypt's zero mask differs from the host decrypt's")
-    dev_ms = time_ms(lambda: dec.zero_mask(result.data, dsk.s_mont, batch), 10)
-    dev_wall = wall_ms(lambda: dec.zero_mask(result.data, dsk.s_mont, batch).cpu(), 5)
-    host_ms = wall_ms(lambda: dctx.decrypt(result, dsk, length=batch), 3)
+    dev_ms = time_ms(lambda: dec.zero_mask(result.data, dsk.s_mont, batch), CUDA, 10)
+    dev_wall = wall_ms(lambda: dec.zero_mask(result.data, dsk.s_mont, batch).cpu(), CUDA, 5)
+    host_ms = wall_ms(lambda: dctx.decrypt(result, dsk, length=batch), CUDA, 3)
     print(f"[decrypt] result {tuple(result.data.shape)}: device zero mask == host "
           f"decrypt mask ({int(mask_dev.sum())} zero slots); device {dev_ms:.3f} ms "
           f"(CUDA events), {dev_wall:.3f} ms with the mask's copy to the host; "
@@ -1357,12 +1377,12 @@ def main() -> None:
         fail("the host-resident table is not in pinned memory")
     i_ct, m_ct = client.idx_ct, client.minus_ct
     want = pie_dev.run(i_ct, m_ct).data
-    ms_dev = wall_ms(lambda: pie_dev.run(i_ct, m_ct), 5)
+    ms_dev = wall_ms(lambda: pie_dev.run(i_ct, m_ct), CUDA, 5)
     for pos_chunk in (None, 3):
         got = pie_host._run_host_table(i_ct, m_ct, pos_chunk).data
         if max_err(got, want, "host table") != 0:
             fail(f"host-table PIE (pos_chunk={pos_chunk}) differs from the device table")
-        ms_host = wall_ms(lambda: pie_host._run_host_table(i_ct, m_ct, pos_chunk), 5)
+        ms_host = wall_ms(lambda: pie_host._run_host_table(i_ct, m_ct, pos_chunk), CUDA, 5)
         print(f"[host_table] pos_chunk={pos_chunk}: run() bit-equal to the device "
               f"table; online {ms_host:.3f} ms vs device table {ms_dev:.3f} ms "
               f"(table {pie_host.table_pt.numel() * 4 / 2**20:.1f} MiB pinned; build "
@@ -1409,6 +1429,9 @@ def main() -> None:
     print(f"[main] kernel launches over all six runs {launches}", flush=True)
     torch.cuda.empty_cache()
 
+    # ---- [bench]: the port's bench and eval tools at full size -----------
+    bench_out = bench_phase_fresh(smi_line)
+
     # ---- parallel/: the sharded steps, NCCL at world 1, then four ranks ---
     parallel = parallel_phase(runs, smi_line)
     torch.cuda.empty_cache()
@@ -1447,12 +1470,20 @@ def main() -> None:
     kernels = [
         entry("ntt_fwd", f"{csrc}/ntt.cu", "nested_hashing_psi_tpu/ops/ntt_pallas.py:631",
               "ntt_q", launches["ntt_fwd"],
-              parallel_launches=parallel["launches"]["ntt_fwd"]),
+              parallel_launches=parallel["launches"]["ntt_fwd"],
+              bench_wrapper_calls=bench_out["wrapper_calls"]["ntt_fwd"]),
         entry("ntt_inv", f"{csrc}/ntt.cu", "nested_hashing_psi_tpu/ops/ntt_pallas.py:645",
               "intt_q", launches["ntt_inv"],
-              parallel_launches=parallel["launches"]["ntt_inv"]),
+              parallel_launches=parallel["launches"]["ntt_inv"],
+              bench_wrapper_calls=bench_out["wrapper_calls"]["ntt_inv"]),
         entry("pie_ip", f"{csrc}/pie_ip.cu", "nested_hashing_psi_tpu/ops/pie_kernels.py:48",
               "pie_ip", launches["pie_ip"], parallel_launches=parallel["launches"]["pie_ip"],
+              bench_wrapper_calls=bench_out["wrapper_calls"]["pie_ip"],
+              p58_max_abs_err=bench_out["bench_pie_online"]["2^24"]["k2_max_abs_err"],
+              p58_ms=bench_out["bench_pie_online"]["2^24"]["k2_ms"],
+              p58_plain_ms=bench_out["bench_pie_online"]["2^24"]["k2_plain_ms"],
+              p58_bound_ms=bench_out["bench_pie_online"]["2^24"]["k2_bound_ms"],
+              p58_share=bench_out["bench_pie_online"]["2^24"]["k2_share"],
               **dict(zip(
                   ("l9_max_abs_err", "l9_ms", "l9_plain_ms", "l9_bound_ms", "l9_bound_by"),
                   results["pie_ip_l9"])),
@@ -1539,6 +1570,9 @@ def main() -> None:
     print(f"[elgamal] times {json.dumps(elgamal_times)}", flush=True)
     print(f"[checkpoint] times {json.dumps(checkpoint_times)}", flush=True)
     print(f"[parallel] times {json.dumps({k: v for k, v in parallel.items() if k != 'launches'})}",
+          flush=True)
+    print(f"[bench] phase {bench_out['phase_s']:.2f} s, wrapper calls "
+          f"{bench_out['wrapper_calls']}",
           flush=True)
     print(smi_line)
     print(json.dumps({"kernels": kernels}))

@@ -31,7 +31,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
 from chip_smoke import host_cpu  # noqa: E402
-from nested_hashing_psi_tpu_torch.benchmarks.common import card_line  # noqa: E402
+from nested_hashing_psi_tpu_torch.benchmarks.card import card_line  # noqa: E402
 ROW = ["-B", "128", "-S", "65536", "-C", "32", "-I", "16", "-e", "502", "-E", "12", "-b",
        "12", "-k", "2", "-K", "2", "--nThreads", "2", "--curve", "P-256", "--device", "cuda",
        "-p"]

@@ -112,7 +112,7 @@ fn, stream = cuda_lib.get_lib().nhpsi_pie_ip, torch.cuda.current_stream().cuda_s
 out = torch.empty((H, D, 2, L, N), dtype=torch.int32, device="cuda")
 for label, ii, p0 in (("slice [3,6)", idx[:, 3:6].contiguous(), 3), ("whole table", idx, None)):
     call = lambda: pie_kernels.indexed_inner_product(ii, pt, tb["p_u32"], tb["pinv_u32"], p0)
-    ms = [cs.time_ms(call, 200) for _ in range(5)]
+    ms = [cs.time_ms(call, "cuda", 200) for _ in range(5)]
     wrapper = [host_us(call) for _ in range(3)]
     # the C entry alone, with its arguments made once (the parent's
     # signature has 13, this tree's 17)
@@ -200,6 +200,7 @@ def main() -> None:
     import torch
 
     import chip_smoke
+    from nested_hashing_psi_tpu_torch.benchmarks.timing import time_ms
     from nested_hashing_psi_tpu_torch.ops import pie_kernels
     from nested_hashing_psi_tpu_torch.ops.ntt import NTTPlan
     from nested_hashing_psi_tpu_torch.ops.primes import ntt_primes
@@ -261,7 +262,7 @@ def main() -> None:
     warm = {"idx": residues((H, P, 2, 6, N), warm_q), "pt": residues((H, D, P, 6, N), warm_q),
             "tb": NTTPlan(N, warm_q).tensors(dev), "p0": 0}
     warm.update(view=warm["pt"], out=torch.empty((H, D, 2, 6, N), dtype=torch.int32, device=dev))
-    chip_smoke.time_ms(launcher("K2", warm), 500)
+    time_ms(launcher("K2", warm), dev, 500)
     del warm
     cases = [(f"L = {L}", L, "full") for L in range(6, 11)] + [
         ("slice [3,6) of P = 12, L = 6", 6, "slice"),
@@ -311,7 +312,7 @@ def main() -> None:
             for name in order:
                 fn = launcher(name, case)
                 times[name]["cold"].append(cold_ms(fn))
-                times[name]["warm"].append(chip_smoke.time_ms(fn, 20))
+                times[name]["warm"].append(time_ms(fn, dev, 20))
         for name in names:
             cold = sum(times[name]["cold"]) / 2
             warm_ms = sum(times[name]["warm"]) / 2

@@ -34,7 +34,7 @@ import argparse
 
 import torch
 
-from nested_hashing_psi_tpu_torch.benchmarks import common, u32
+from nested_hashing_psi_tpu_torch.benchmarks import card, common, timing, u32
 from nested_hashing_psi_tpu_torch.benchmarks.bench_ntt_lazy_probe import (
     BATCH,
     LIMBS,
@@ -152,8 +152,8 @@ def run(device: str = "cuda", n: int = N, limbs: int = LIMBS, batch: int = BATCH
             raise RuntimeError(f"anatomy_probe {name} differs from the plain version "
                                f"(max_abs_err {err})")
         r = {"max_abs_err": err,
-             "ms": common.time_ms(lambda: anatomy_probe(x, plan, name), dev, iters),
-             "plain_ms": common.time_ms(lambda: anatomy_probe_plain(x, plan, name), dev, 1)}
+             "ms": timing.time_ms(lambda: anatomy_probe(x, plan, name), dev, iters),
+             "plain_ms": timing.time_ms(lambda: anatomy_probe_plain(x, plan, name), dev, 1)}
         r["transforms_per_s"] = rows / (r["ms"] * 1e-3)
         if dev.type == "cuda":
             if name == "stages":
@@ -179,7 +179,7 @@ def main(argv=None) -> dict:
     ap.add_argument("--iters", type=int, default=10)
     a = ap.parse_args(argv)
     res = run(a.device, a.n, a.limbs, a.batch, a.iters)
-    where = (f"cuda: {common.card_line()}" if a.device != "cpu"
+    where = (f"cuda: {card.card_line()}" if a.device != "cpu"
              else "cpu: the plain PyTorch version (no device rate)")
     print(f"[ntt_anatomy] {where}; ({a.batch}, {a.limbs}, {a.n}), every variant equal to "
           "the plain version", flush=True)

@@ -37,7 +37,7 @@ import argparse
 import numpy as np
 import torch
 
-from nested_hashing_psi_tpu_torch.benchmarks import common, u32
+from nested_hashing_psi_tpu_torch.benchmarks import card, common, timing, u32
 from nested_hashing_psi_tpu_torch.benchmarks.bench_vpu_ops import PIPE_OPS_S, ops_per_app
 from nested_hashing_psi_tpu_torch.ops import cuda_lib, ntt_cuda
 from nested_hashing_psi_tpu_torch.ops.ntt import NTTPlan, ntt
@@ -200,7 +200,7 @@ def k1_line(x: torch.Tensor, ps, dev, iters: int) -> tuple[int, float]:
     err = int((ntt_cuda.ntt(x, k1).long() - ntt(x, k1).long()).abs().max().item())
     if err:
         raise RuntimeError(f"K1 at {tuple(x.shape)} differs from the plain ntt (max_abs_err {err})")
-    return err, common.time_ms(lambda: ntt_cuda.ntt(x, k1), dev, iters)
+    return err, timing.time_ms(lambda: ntt_cuda.ntt(x, k1), dev, iters)
 
 
 def run(device: str = "cuda", n: int = N, limbs: int = LIMBS, batch: int = BATCH,
@@ -216,8 +216,8 @@ def run(device: str = "cuda", n: int = N, limbs: int = LIMBS, batch: int = BATCH
                   .abs().max().item())
         if err:
             raise RuntimeError(f"lazy_probe {name} differs from the plain version (max_abs_err {err})")
-        r = {"max_abs_err": err, "ms": common.time_ms(lambda: lazy_probe(x, plan, name), dev, iters),
-             "plain_ms": common.time_ms(lambda: lazy_probe_plain(x, plan, name), dev, 1)}
+        r = {"max_abs_err": err, "ms": timing.time_ms(lambda: lazy_probe(x, plan, name), dev, iters),
+             "plain_ms": timing.time_ms(lambda: lazy_probe_plain(x, plan, name), dev, 1)}
         r["transforms_per_s"] = rows / (r["ms"] * 1e-3)
         if dev.type == "cuda":
             r["sass"] = sass_per_butterfly(kernel_name(plan.m1, name), plan)
@@ -238,7 +238,7 @@ def main(argv=None) -> dict:
     ap.add_argument("--iters", type=int, default=10)
     a = ap.parse_args(argv)
     res = run(a.device, a.n, a.limbs, a.batch, a.iters)
-    where = (f"cuda: {common.card_line()}" if a.device != "cpu"
+    where = (f"cuda: {card.card_line()}" if a.device != "cpu"
              else "cpu: the plain PyTorch version (no device rate)")
     print(f"[ntt_lazy] {where}; ({a.batch}, {a.limbs}, {a.n}), every form equal to the "
           "plain version", flush=True)

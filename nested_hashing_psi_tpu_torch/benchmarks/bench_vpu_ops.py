@@ -27,7 +27,7 @@ import argparse
 import numpy as np
 import torch
 
-from nested_hashing_psi_tpu_torch.benchmarks import common, u32
+from nested_hashing_psi_tpu_torch.benchmarks import card, common, timing, u32
 from nested_hashing_psi_tpu_torch.ops import cuda_lib
 
 MIXES = ("add", "mul", "addmul", "where_ge", "mulhi", "shoup", "shoup_lazy", "mont",
@@ -187,10 +187,10 @@ def run(device: str = "cuda", shape=SHAPE, mixes=MIXES, iters: int = 5) -> dict:
                                "plain version")
         # no element differs under the rule, so the largest difference is 0
         r = {"mismatches": bad, "max_abs_err": 0,
-             "ms": common.time_ms(lambda: vpu_ops(x, name), dev, iters),
-             "plain_ms": common.time_ms(lambda: vpu_ops_plain(x, name), dev, 1)}
+             "ms": timing.time_ms(lambda: vpu_ops(x, name), dev, iters),
+             "plain_ms": timing.time_ms(lambda: vpu_ops_plain(x, name), dev, 1)}
         if dev.type == "cuda":
-            r["rate_ms"] = common.time_ms(lambda: vpu_ops(x, name, RATE_K), dev, iters)
+            r["rate_ms"] = timing.time_ms(lambda: vpu_ops(x, name, RATE_K), dev, iters)
             r["rate_k"] = RATE_K
             r["sass"] = sass_per_application(name)
             r["bound_ms"], r["bound_by"] = bound_ms(elems, RATE_K, r["sass"])
@@ -210,7 +210,7 @@ def main(argv=None) -> dict:
     ap.add_argument("--iters", type=int, default=5)
     a = ap.parse_args(argv)
     res = run(a.device, tuple(a.shape), a.mixes, a.iters)
-    where = (f"cuda: {common.card_line()}" if a.device != "cpu"
+    where = (f"cuda: {card.card_line()}" if a.device != "cpu"
              else "cpu: the plain PyTorch version (no device rate)")
     print(f"[vpu_ops] {where}; shape {tuple(a.shape)}, K = {K} equal to the plain version",
           flush=True)

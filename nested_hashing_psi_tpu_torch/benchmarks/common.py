@@ -1,4 +1,4 @@
-"""What the three probes share: the device choice, timing, and the SASS
+"""What the three probes share: the device choice and the SASS
 instruction counts of their kernels (``cuobjdump -sass`` of the built
 kernel library)."""
 
@@ -7,7 +7,6 @@ from __future__ import annotations
 import os
 import re
 import subprocess
-import time
 
 import torch
 
@@ -35,26 +34,6 @@ def resolve_device(name: str) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"no probe for device {dev}")
     return dev
-
-
-def time_ms(fn, device: torch.device, iters: int) -> float:
-    """Mean ms of fn(): CUDA events over iters launches after two warm-ups
-    on a GPU, the host clock on the CPU."""
-    fn()
-    if device.type != "cuda":
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            fn()
-        return (time.perf_counter() - t0) * 1e3 / iters
-    fn()
-    torch.cuda.synchronize()
-    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / iters
 
 
 def sass_functions() -> dict[str, list[tuple[int, str, str]]]:
@@ -160,14 +139,3 @@ def instance(instances: dict[str, dict[str, int]], fragment: str) -> dict[str, i
     if len(hits) != 1:
         raise RuntimeError(f"{len(hits)} kernels match {fragment!r} in the ptxas report")
     return instances[hits[0]]
-
-
-def card_line() -> str:
-    """`nvidia-smi --query-gpu=name,power.limit` of the first card, or a note."""
-    try:
-        out = subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-            capture_output=True, text=True, timeout=60).stdout.strip().splitlines()
-    except OSError:
-        out = []
-    return out[0] if out else "nvidia-smi unavailable"

@@ -26,6 +26,8 @@ import statistics
 import subprocess
 import sys
 
+from nested_hashing_psi_tpu_torch.benchmarks.card import card_line
+
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 VARIANTS = ("exact", "lazy", "lazy_ps", "stages", "moves", "k1")
 
@@ -47,12 +49,6 @@ out.update({v: anat[v]["ms"] for v in bench_ntt_anatomy.VARIANTS})
 out["k1"] = anat["k1_ms"]
 print("RESULT " + json.dumps(out), flush=True)
 """
-
-
-def card_line() -> str:
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, timeout=60).stdout.strip().splitlines()
-    return out[0] if out else "nvidia-smi unavailable"
 
 
 def run_tree(tree: str, iters: int) -> dict:

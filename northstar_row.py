@@ -42,13 +42,14 @@ sys.path.insert(0, ROOT)
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from chip_smoke import host_cpu, k2_bound, time_ms, trace_online  # noqa: E402
+from chip_smoke import host_cpu, k2_bound, trace_online  # noqa: E402
 from nested_hashing_psi_tpu_torch.benchmarks import profile_build  # noqa: E402
 from nested_hashing_psi_tpu_torch.benchmarks.bench_e2e_psi import (  # noqa: E402
     geometry,
     sidecar_path,
 )
-from nested_hashing_psi_tpu_torch.benchmarks.common import card_line  # noqa: E402
+from nested_hashing_psi_tpu_torch.benchmarks.card import card_line  # noqa: E402
+from nested_hashing_psi_tpu_torch.benchmarks.timing import time_ms  # noqa: E402
 from nested_hashing_psi_tpu_torch.convert import from_numpy  # noqa: E402
 from nested_hashing_psi_tpu_torch.fhe.bgv import Ciphertext  # noqa: E402
 from nested_hashing_psi_tpu_torch.ops import pie_kernels  # noqa: E402
@@ -92,8 +93,8 @@ def k2_at_row(pie, idx: torch.Tensor, depth_slice: int = 4) -> dict:
     if not torch.equal(kernel(), plain()):
         raise SystemExit("northstar_row: K2 differs from its plain version at the row's shape")
     b_ms, b_by = k2_bound(H, D, P, L, N)
-    return {"shape": [H, D, P, L, N], "max_abs_err": 0, "ms": time_ms(kernel, 20),
-            "plain_ms": time_ms(plain, 2), "bound_ms": b_ms, "bound_by": b_by}
+    return {"shape": [H, D, P, L, N], "max_abs_err": 0, "ms": time_ms(kernel, "cuda", 20),
+            "plain_ms": time_ms(plain, "cuda", 2), "bound_ms": b_ms, "bound_by": b_by}
 
 
 def main(argv=None) -> dict:

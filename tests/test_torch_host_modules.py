@@ -332,6 +332,34 @@ _NO_JAX_SCRIPT = textwrap.dedent("""
         want = ntt(torch.from_numpy(x.view(np.int32)), NTTPlan(64, ps)).numpy().view(np.uint32)
         assert (fwd == want).all() and (back == x).all()
         print("RANKS_STAND_ALONE")
+        from nested_hashing_psi_tpu_torch.benchmarks import (
+            bench, bench_ntt_f32mxu, bench_ntt_kernel, bench_pie_online, comm_model,
+            profile_online, run_eval, scaling_report, small_pie, summarize_eval, timing)
+        from nested_hashing_psi_tpu_torch.hashing import evaluation
+
+        assert evaluation.evaluate_flat(128, 1, slacks=(2.0,))[0][2] == 0
+        cpu = torch.device("cpu")
+        built = small_pie.bench_row(device=cpu, ring=512, simple=64, D=2, P=4)
+        bench.headline(bench.ntt_rates(cpu, n=64, limbs=2, hbm_batch=2, l2_batch=1),
+                       bench.pie_online(built, cpu, queries=2, iters=1, steady_iters=1), cpu)
+        profile_online.hps_rows(built, cpu, iters=1)
+        bench_pie_online.run("small", cpu, ring=1024, iters=1)
+        bench_ntt_kernel.rates("split", 2, cpu, n=256, limbs=2, iters=1)
+        bench_ntt_f32mxu.run(cpu, m=16, tb=1, n=256, batch=1, iters=1)
+        comm_model.main(["--link-GBps", "100"])
+        summarize_eval.main([os.path.join(timing.ROOT, "eval_results")])
+        with tempfile.TemporaryDirectory() as d:
+            tsv = os.path.join(d, "rows.tsv")
+            with open(tsv, "w") as f:
+                f.write("serverSetSize\\tclientSetSize\\tintersectionSetSize\\t"
+                        "eachSimpleTableSize\\teachCuckooTableSize\\tnSimpleHF\\tmaxPP\\n"
+                        "300\\t12\\t5\\t32\\t12\\t2\\t4\\n")
+            assert run_eval.main(["--params", tsv, "--outdir", d, "--device", "cpu"])[0][1]
+        rep = scaling_report.main(["--device", "cpu", "--ring", "64", "--limbs", "4",
+                                   "--depths", "4", "--positions", "4", "--iters", "1",
+                                   "--ranks", "2"])
+        assert all(r.get("bit_equal", True) for r in rep["rows"])
+        print("TOOLS_STAND_ALONE")
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith(("jax.", "nested_hashing_psi_tpu."))
                      or m == "nested_hashing_psi_tpu")
@@ -347,8 +375,12 @@ def test_port_imports_nothing_of_jax_or_the_jax_package(tmp_path):
     """Every port module imported, a whole protocol run, a two-worker
     parallel table build, the three probes' CPU runs, the end-to-end bench's
     --buildOnly and --resume (utils.checkpoint) and the build profiler under
-    utils.profiling's trace, and the ring-exchange NTT in two spawned gloo
-    ranks (parallel.launch, the tests' rank program), in a fresh interpreter where neither jax nor the
+    utils.profiling's trace, the ring-exchange NTT in two spawned gloo
+    ranks (parallel.launch, the tests' rank program), and every bench and
+    eval tool (hashing.evaluation and benchmarks/: bench, profile_online,
+    bench_pie_online, bench_ntt_kernel, bench_ntt_f32mxu, comm_model,
+    summarize_eval, run_eval, scaling_report with two spawned gloo ranks) at
+    small sizes on the CPU, in a fresh interpreter where neither jax nor the
     JAX package can be imported (stubs that raise shadow them, for the
     spawned workers and ranks too); afterwards neither is in sys.modules."""
     for name in ("nested_hashing_psi_tpu", "jax"):
@@ -364,7 +396,7 @@ def test_port_imports_nothing_of_jax_or_the_jax_package(tmp_path):
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr[-3000:]
     assert "Set matches!" in res.stdout and "PORT_STANDS_ALONE" in res.stdout
-    assert "RANKS_STAND_ALONE" in res.stdout
+    assert "RANKS_STAND_ALONE" in res.stdout and "TOOLS_STAND_ALONE" in res.stdout
     assert res.stdout.count("G applications/s") == 11
     assert "[ntt_lazy]" in res.stdout and "[ntt_anatomy]" in res.stdout
     assert "RESUME RESULT: Set matches!" in res.stdout and "[profile_build] {" in res.stdout

@@ -782,3 +782,31 @@ def test_sharded_steps_nccl_world_one(cuda):
     if torch.cuda.device_count() == 1:  # both ranks take card 0: the store check refuses
         with pytest.raises(RuntimeError, match=r"nccl needs one GPU per rank: rank [01] shares"):
             run_ranks(run_cases, 2, "nccl", ([], "cuda"), timeout=120)
+
+
+@pytest.mark.parametrize("inverse", [False, True], ids=["fwd", "inv"])
+@pytest.mark.parametrize("form", ["auto", "whole", "split"])
+def test_bench_ntt_kernel_chain_matches_plain(cuda, form, inverse):
+    """bench_ntt_kernel's chained K1, in each form, equals the plain chain
+    at (5, 2, 4096)."""
+    from nested_hashing_psi_tpu_torch.benchmarks import bench_ntt_kernel
+
+    ps = ntt_primes(2, 31, 2 * 4096)
+    plan = NTTPlan(4096, ps)
+    x = _residues((5, 2, 4096), ps, seed=41)
+    got = bench_ntt_kernel.run_chain(x.to(cuda), plan, inverse, form, 3)
+    want = bench_ntt_kernel.run_chain(x, plan, inverse, form, 3)  # the plain version
+    assert torch.equal(got.cpu(), want)
+
+
+def test_bench_query0_mask_on_the_card(cuda):
+    """The bench's Q-query pipeline on the card at ring 4096: query 0's
+    packed device mask equals the host decrypt of a single run (the bench
+    raises otherwise), and the readings are positive."""
+    from nested_hashing_psi_tpu_torch.benchmarks import bench, small_pie
+
+    built = small_pie.bench_row(device=cuda, ring=4096, simple=1024, D=4, P=8)
+    res = bench.pie_online(built, cuda, queries=4, iters=2, steady_iters=3)
+    assert res["query0_mask_equals_host_decrypt"] and res["pipeline_Q"] == 4
+    assert min(res[k] for k in ("ms_per_query", "ms_per_query_single", "ms_per_query_steady",
+                                "ms_per_query_device")) > 0
