@@ -205,12 +205,7 @@ def fail(msg: str) -> None:
 if ROOT not in sys.path:  # behind a tree that k2_sweep.py put first
     sys.path.append(ROOT)
 try:  # the card's peaks, the kernels' bounds and the timing, shared with the port's tools
-    from nested_hashing_psi_tpu_torch.benchmarks.card import (
-        HBM_BYTES_S,
-        k1_bound,
-        k2_bound,
-        k3_bound,
-    )
+    from nested_hashing_psi_tpu_torch.benchmarks.card import k1_bound, k2_bound, k3_bound
     from nested_hashing_psi_tpu_torch.benchmarks.timing import graph_ms, time_ms, wall_ms
 except ImportError as e:
     fail(f"the port is not importable here ({e}); run from the repository root")
@@ -964,6 +959,14 @@ def main() -> None:
               if s["arith"] < bench_vpu_ops.MIN_ARITH[m]}
     if folded:
         fail(f"A1 chains folded (instructions per application, floor): {folded}")
+    vpu_regs = {m: bench_common.instance(ptxas, f"vpu_ops_kernelILi{i}E")
+                for i, m in enumerate(bench_vpu_ops.MIXES)}
+    print("[sass] A1 registers / spill-store bytes per instance: " + "; ".join(
+        f"{m} {r['registers']}/{r['spill_stores']}" for m, r in vpu_regs.items()), flush=True)
+    spilled = {m: r["spill_stores"] + r["spill_loads"] for m, r in vpu_regs.items()
+               if r["spill_stores"] or r["spill_loads"]}
+    if spilled:
+        fail(f"A1 instances spill (bytes of spill stores and loads): {spilled}")
     probe_plan = SplitNTTPlan(16384, ntt_primes(6, 31, 2 * 16384))
     # the redesigned probe kernels (A2's three forms, A3's stages) by name
     probe_kernels = {v: bench_ntt_lazy_probe.kernel_name(128, v)
@@ -1502,38 +1505,40 @@ def main() -> None:
               "ntt_mxu_inv_q", k3_launches["ntt_mxu_inv"], launches_from=k3_note,
               k1_ms=results["ntt_mxu_inv_q"][3], int8_products_ms=results["ntt_mxu_inv_q"][4]),
     ]
-    vpu_run = probe_runs["vpu"]
-    # the 11 K = 64 launches: the larger of their summed bytes and operations
-    # (each mix's operations: its busier pipe's issue slots, bench_vpu_ops.ops_per_app)
-    elems = int(np.prod(bench_vpu_ops.SHAPE))
-    t_ops = sum(bench_vpu_ops.ops_per_app(vpu_sass[m]) for m in vpu_run) * elems * \
-        bench_vpu_ops.K / bench_vpu_ops.PIPE_OPS_S * 1e3
-    t_bytes = len(vpu_run) * 8 * elems / HBM_BYTES_S * 1e3
+    vpu_run, vpu_sum = probe_runs["vpu"]["mixes"], probe_runs["vpu"]["summed"]
+    # the 11 K = 64 launches: device time from a CUDA graph of chained calls,
+    # the wrapper's pace beside it, against the sum of each launch's own bound
+    # (bench_vpu_ops.summed_bound_ms; each mix's operations: its busier
+    # pipe's issue slots, bench_vpu_ops.ops_per_app)
     vpu_extra = {}
     for m, r in vpu_run.items():
         vpu_extra.update({
-            f"{m}_k64_ms": r["ms"], f"{m}_k64_bound_ms": r["k_bound_ms"],
-            f"{m}_k64_share": r["k_bound_ms"] / r["ms"], f"{m}_rate_k": r["rate_k"],
-            f"{m}_rate_ms": r["rate_ms"], f"{m}_rate_bound_ms": r["bound_ms"],
-            f"{m}_rate_bound_by": r["bound_by"], f"{m}_rate_share": r["bound_ms"] / r["rate_ms"],
+            f"{m}_k64_ms": r["ms"], f"{m}_k64_wrapper_ms": r["wrapper_ms"],
+            f"{m}_k64_bound_ms": r["k_bound_ms"], f"{m}_k64_share": r["share"],
+            f"{m}_rate_k": r["rate_k"], f"{m}_rate_ms": r["rate_ms"],
+            f"{m}_rate_wrapper_ms": r["rate_wrapper_ms"], f"{m}_rate_bound_ms": r["bound_ms"],
+            f"{m}_rate_bound_by": r["bound_by"], f"{m}_rate_share": r["rate_share"],
             f"{m}_sass_fma_per_app": vpu_sass[m]["fma"],
             f"{m}_sass_fma_slots_per_app": vpu_sass[m]["fma_slots"],
             f"{m}_sass_alu_per_app": vpu_sass[m]["alu"],
-            f"{m}_T_instructions_s": r["apps_per_s"] * vpu_sass[m]["arith"] / 1e12})
-    print("[a1_bound] per mix, bound by pipe / kernel = share: K = 64 at (64,128,128); "
+            f"{m}_T_instructions_s": r["apps_per_s"] * vpu_sass[m]["arith"] / 1e12,
+            f"{m}_registers": vpu_regs[m]})
+    print("[a1_bound] per mix, bound by pipe / device time = share: K = 64 at (64,128,128); "
           "K = 2^15: " + "; ".join(
-              f"{m} {vpu_extra[f'{m}_k64_share']:.3f}, {vpu_extra[f'{m}_rate_share']:.3f}"
-              for m in vpu_run) + f"; the 11 K = 64 launches summed: bound "
-          f"{max(t_ops, t_bytes):.4f} ms / {sum(r['ms'] for r in vpu_run.values()):.4f} ms = "
-          f"{max(t_ops, t_bytes) / sum(r['ms'] for r in vpu_run.values()):.3f}", flush=True)
+              f"{m} {r['share']:.3f}, {r['rate_share']:.3f}" for m, r in vpu_run.items())
+          + f"; the 11 K = 64 launches summed: bound {vpu_sum['bound_ms']:.4f} ms (each "
+          f"launch's own) / device {vpu_sum['ms']:.4f} ms = {vpu_sum['share']:.3f}; the "
+          f"wrapper's pace {vpu_sum['wrapper_ms']:.4f} ms", flush=True)
     kernels.append({
         "name": "probe_vpu_ops", "route": "cuda", "source": f"{csrc}/probe_vpu_ops.cu",
         "replaces": "benchmarks/bench_vpu_ops.py:101", "launches": probe_launches["probe_vpu_ops"],
         "max_abs_err": max(r["max_abs_err"] for r in vpu_run.values()),
-        "ms": sum(r["ms"] for r in vpu_run.values()),
-        "plain_ms": sum(r["plain_ms"] for r in vpu_run.values()), "bound_ms": max(t_ops, t_bytes),
-        "bound_by": "operations" if t_ops >= t_bytes else "bytes", "library_ms": None,
-        "measured_as": "the 11 mixes at (64, 128, 128), K = 64, one launch each, summed",
+        "ms": vpu_sum["ms"], "wrapper_ms": vpu_sum["wrapper_ms"], "plain_ms": vpu_sum["plain_ms"],
+        "bound_ms": vpu_sum["bound_ms"], "bound_by": vpu_sum["bound_by"],
+        "share": vpu_sum["share"], "library_ms": None,
+        "measured_as": "the 11 mixes at (64, 128, 128), K = 64, one launch each, summed: ms "
+                       "the device's time per call from a CUDA graph of chained calls, "
+                       "wrapper_ms calls back to back",
         **vpu_extra})
 
     def probe_entry(name, source, replaces, main_v, others, run, **extra):

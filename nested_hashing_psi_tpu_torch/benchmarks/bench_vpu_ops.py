@@ -12,10 +12,16 @@ NaNs compare as one class (the payload is the platform's).
 
 ``vpu_ops`` launches the CUDA kernel (csrc/probe_vpu_ops.cu) on a CUDA
 tensor and takes ``vpu_ops_plain`` on a CPU tensor only; ``launches``
-counts kernel launches. ``main`` runs every mix at the JAX probe's shape,
-(64, 128, 128) with K = 64 against the plain version, then at a K large
-enough that one launch takes about a millisecond, and prints the rates in
-applications/s and in SASS instructions/s by pipe.
+counts wrapper calls that launch the kernel (a CUDA graph's capture counts
+each call once, its replays not). ``main`` runs every mix at the JAX
+probe's shape, (64, 128, 128) with K = 64, against the plain version, then
+reads each mix at K = 64 and at RATE_K = 2^15 on the card: the device's
+time per call from replays of a CUDA graph of calls that each take the
+last one's output (``timing.graph_ms`` over ``timing.chain``, as the JAX
+probe's ``_rate`` chains y = fn(y)), and beside it the wrapper's pace, the
+same call issued back to back (``timing.time_ms``). The shares of the
+bound by pipe come from the device time; the 11 launches at K = 64 are
+summed against the sum of each launch's own bound (``summed_bound_ms``).
 
     python -m nested_hashing_psi_tpu_torch.benchmarks.bench_vpu_ops [--device cpu] [--shape B M N]
 """
@@ -38,8 +44,10 @@ SHAPE = (64, 128, 128)
 K = 64
 RATE_K = 1 << 15
 # applications per element per pass of the kernel's unrolled inner loop,
-# and elements per thread (csrc/probe_vpu_ops.cu kUnroll, kElems)
-UNROLL, ELEMS = 16, 4
+# elements per thread and tile (one 16-byte vector), and threads per block
+# (csrc/probe_vpu_ops.cu kUnroll, kElems, kThreads): a tile is TILE elements
+UNROLL, ELEMS, THREADS = 16, 4, 256
+TILE = THREADS * ELEMS
 # The fewest SASS arithmetic instructions one application of each mix can
 # take when no instruction serves two applications, with one exception: a
 # three-input IADD3 takes two applications of ``add`` (x + c + c), which the
@@ -124,6 +132,8 @@ def vpu_ops(x: torch.Tensor, name: str, k: int = K) -> torch.Tensor:
             raise ValueError(f"no probe for device {x.device}")
         return vpu_ops_plain(x, name, k)
     x = x.contiguous()
+    if x.data_ptr() % 16:  # the kernel copies 16-byte vectors
+        x = x.clone()
     y = torch.empty_like(x)
     rc = cuda_lib.get_lib().nhpsi_probe_vpu_ops(
         x.data_ptr(), y.data_ptr(), x.numel(), MIXES.index(name), k,
@@ -142,10 +152,22 @@ def same(got: torch.Tensor, want: torch.Tensor, name: str) -> int:
     return int(diff.sum().item())
 
 
+def chain_loop(instrs: list[tuple[int, str, str]]) -> list[tuple[int, str, str]]:
+    """The kernel's chain pass: the largest loop, then the largest loop
+    inside it, down to one that holds none (the tile loop holds the pass
+    loop and the shorter loop over the rest of K)."""
+    body = common.loop_body(instrs)
+    while True:
+        try:
+            body = common.loop_body(body)
+        except RuntimeError:  # no loop inside
+            return body
+
+
 def sass_per_application(name: str) -> dict:
-    """SASS instructions per application of one mix, from the loop body of
-    its kernel (UNROLL applications to each of ELEMS elements)."""
-    body = common.loop_body(common.find_function(f"vpu_ops_kernelILi{MIXES.index(name)}E"))
+    """SASS instructions per application of one mix, from the chain pass
+    of its kernel (UNROLL applications to each of ELEMS elements)."""
+    body = chain_loop(common.find_function(f"vpu_ops_kernelILi{MIXES.index(name)}E"))
     return common.by_pipe(body, UNROLL * ELEMS)
 
 
@@ -170,11 +192,30 @@ def bound_ms(elems: int, k: int, sass: dict) -> tuple[float, str]:
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+def summed_bound_ms(sass_by_mix: dict, elems: int, k: int) -> tuple[float, str]:
+    """The least time of one launch of each mix, summed: each launch is
+    bound by its own larger term (``bound_ms``), so the sum is the sum of
+    those, not the larger of the summed bytes and the summed operations.
+    Named by the term that bounds the launches that make up most of it."""
+    parts = [bound_ms(elems, k, s) for s in sass_by_mix.values()]
+    ops = sum(t for t, by in parts if by == "operations")
+    total = sum(t for t, _ in parts)
+    return total, "operations" if ops >= total - ops else "bytes"
+
+
 def run(device: str = "cuda", shape=SHAPE, mixes=MIXES, iters: int = 5) -> dict:
     """Every mix: the kernel (or, on the CPU, the plain version) at K
-    against the plain version, then its rate at RATE_K. Returns per mix
-    {mismatches, max_abs_err, ms, plain_ms, rate_ms, apps_per_s, sass,
-    bound_ms, bound_by}; raises if any mix disagrees."""
+    against the plain version, then read at K and at RATE_K. Returns
+    {"mixes": {name: r}, "summed": the K launches of every mix summed};
+    raises if any mix disagrees.
+
+    r: mismatches, max_abs_err, ms (the device's time per call at K: a CUDA
+    graph of chained calls), wrapper_ms (calls back to back, the wrapper's
+    pace), plain_ms, share (k_bound_ms / ms); on the card also rate_k,
+    rate_ms and rate_wrapper_ms (the same two readings at RATE_K), sass,
+    bound_ms and bound_by (at RATE_K), rate_share; apps_per_s. On the CPU
+    every time is the host's clock around the plain version and no bound
+    or share exists (no SASS): they are None."""
     dev = common.resolve_device(device)
     rng = np.random.default_rng(0)
     x = torch.from_numpy(rng.integers(0, 1 << 31, size=shape, dtype=np.int64)
@@ -185,21 +226,34 @@ def run(device: str = "cuda", shape=SHAPE, mixes=MIXES, iters: int = 5) -> dict:
         if bad:
             raise RuntimeError(f"vpu_ops {name}: {bad} of {elems} elements differ from the "
                                "plain version")
+
+        def read(k):  # (device ms from a graph of chained calls, the wrapper's pace)
+            return (timing.graph_ms(timing.chain(lambda v: vpu_ops(v, name, k), x), dev),
+                    timing.time_ms(lambda: vpu_ops(x, name, k), dev, iters))
         # no element differs under the rule, so the largest difference is 0
         r = {"mismatches": bad, "max_abs_err": 0,
-             "ms": timing.time_ms(lambda: vpu_ops(x, name), dev, iters),
-             "plain_ms": timing.time_ms(lambda: vpu_ops_plain(x, name), dev, 1)}
+             "plain_ms": timing.time_ms(lambda: vpu_ops_plain(x, name), dev, 1),
+             "k_bound_ms": None, "share": None}
+        r["ms"], r["wrapper_ms"] = read(K)
         if dev.type == "cuda":
-            r["rate_ms"] = timing.time_ms(lambda: vpu_ops(x, name, RATE_K), dev, iters)
             r["rate_k"] = RATE_K
+            r["rate_ms"], r["rate_wrapper_ms"] = read(RATE_K)
             r["sass"] = sass_per_application(name)
             r["bound_ms"], r["bound_by"] = bound_ms(elems, RATE_K, r["sass"])
             r["k_bound_ms"] = bound_ms(elems, K, r["sass"])[0]
+            r["share"] = r["k_bound_ms"] / r["ms"]
+            r["rate_share"] = r["bound_ms"] / r["rate_ms"]
             r["apps_per_s"] = elems * RATE_K / (r["rate_ms"] * 1e-3)
         else:
             r["apps_per_s"] = elems * K / (r["ms"] * 1e-3)
         out[name] = r
-    return out
+    summed = {key: sum(r[key] for r in out.values()) for key in ("ms", "wrapper_ms", "plain_ms")}
+    summed.update(bound_ms=None, bound_by=None, share=None)
+    if dev.type == "cuda":
+        summed["bound_ms"], summed["bound_by"] = summed_bound_ms(
+            {m: r["sass"] for m, r in out.items()}, elems, K)
+        summed["share"] = summed["bound_ms"] / summed["ms"]
+    return {"mixes": out, "summed": summed}
 
 
 def main(argv=None) -> dict:
@@ -214,21 +268,30 @@ def main(argv=None) -> dict:
              else "cpu: the plain PyTorch version (no device rate)")
     print(f"[vpu_ops] {where}; shape {tuple(a.shape)}, K = {K} equal to the plain version",
           flush=True)
-    for name, r in res.items():
+    for name, r in res["mixes"].items():
         line = (f"[vpu_ops] {name:>10}: {r['apps_per_s'] / 1e9:10.3f} G applications/s")
         if "sass" in r:
             s = r["sass"]
-            line += (f" at K = {r['rate_k']} ({r['rate_ms']:.4f} ms; bound {r['bound_ms']:.4f} "
-                     f"ms by {r['bound_by']}, share {r['bound_ms'] / r['rate_ms']:.3f}); SASS "
-                     f"per application: FMA pipe {s['fma']:.2f} ({s['fma_slots']:.2f} slots), "
-                     f"ALU {s['alu']:.2f} -> {r['apps_per_s'] * s['arith'] / 1e12:.2f} T "
-                     f"instructions/s; K = {K}: {r['ms']:.4f} ms (bound {r['k_bound_ms']:.4f} "
-                     f"ms, share {r['k_bound_ms'] / r['ms']:.3f}), plain {r['plain_ms']:.4f} ms; "
-                     "opcodes per application: " + ", ".join(
+            line += (f" at K = {r['rate_k']} (device {r['rate_ms']:.4f} ms, wrapper "
+                     f"{r['rate_wrapper_ms']:.4f} ms; bound {r['bound_ms']:.4f} ms by "
+                     f"{r['bound_by']}, share {r['rate_share']:.3f}); SASS per application: "
+                     f"FMA pipe {s['fma']:.2f} ({s['fma_slots']:.2f} slots), ALU {s['alu']:.2f} "
+                     f"-> {r['apps_per_s'] * s['arith'] / 1e12:.2f} T instructions/s; K = {K}: "
+                     f"device {r['ms']:.4f} ms, wrapper {r['wrapper_ms']:.4f} ms (bound "
+                     f"{r['k_bound_ms']:.4f} ms, share {r['share']:.3f}), plain "
+                     f"{r['plain_ms']:.4f} ms; opcodes per application: " + ", ".join(
                          f"{op} {v:.2f}" for op, v in s["opcodes"].items() if v >= 0.05))
         else:
             line += f" (K = {K}, {r['ms']:.3f} ms)"
         print(line, flush=True)
+    sm = res["summed"]
+    if sm["share"] is None:
+        print(f"[vpu_ops] the {len(res['mixes'])} mixes at K = {K} summed: {sm['ms']:.4f} ms "
+              "(host clock, the plain version)", flush=True)
+    else:
+        print(f"[vpu_ops] the {len(res['mixes'])} launches at K = {K} summed: device "
+              f"{sm['ms']:.4f} ms, wrapper {sm['wrapper_ms']:.4f} ms; bound {sm['bound_ms']:.4f} "
+              f"ms by {sm['bound_by']} (each launch's own), share {sm['share']:.3f}", flush=True)
     return res
 
 

@@ -597,6 +597,7 @@ from nested_hashing_psi_tpu_torch.benchmarks import bench_ntt_anatomy  # noqa: E
 from nested_hashing_psi_tpu_torch.benchmarks import bench_ntt_lazy_probe  # noqa: E402
 from nested_hashing_psi_tpu_torch.benchmarks import bench_vpu_ops  # noqa: E402
 from nested_hashing_psi_tpu_torch.benchmarks import common as bench_common  # noqa: E402
+from nested_hashing_psi_tpu_torch.benchmarks import timing  # noqa: E402
 from nested_hashing_psi_tpu_torch.ops import cuda_lib  # noqa: E402
 from nested_hashing_psi_tpu_torch.ops.split_plan import SplitNTTPlan  # noqa: E402
 
@@ -606,10 +607,20 @@ def _u32_patterns(shape, seed):
     return torch.from_numpy(x.astype(np.uint32).view(np.int32))
 
 
-@pytest.mark.parametrize("shape", [(8, 8, 128), (3, 5, 7)], ids=["tile", "odd"])
+# A tile is bench_vpu_ops.TILE elements (256 threads, one 16-byte vector
+# each); 10007 tiles, a prime, split unevenly over any persistent grid.
+VPU_SHAPES = {"tile": (8, 8, 128), "odd": (3, 5, 7), "one": (1,),
+              "tile-1": (bench_vpu_ops.TILE - 1,), "tile+1": (bench_vpu_ops.TILE + 1,),
+              "uneven": (10007 * bench_vpu_ops.TILE - 3,), "jax": bench_vpu_ops.SHAPE}
+
+
+@pytest.mark.parametrize("shape", list(VPU_SHAPES.values()), ids=list(VPU_SHAPES))
 @pytest.mark.parametrize("mix", bench_vpu_ops.MIXES)
 def test_vpu_ops_kernel_matches_plain(cuda, mix, shape):
-    """K = 64, the JAX probe's function; bit-exact (fmul: NaNs as one class)."""
+    """K = 64, the JAX probe's function; bit-exact (fmul: NaNs as one class),
+    at ragged sizes: one element, a tile less or more one, tiles that the
+    persistent blocks share unevenly with a ragged last vector, and the
+    JAX probe's shape."""
     x = _u32_patterns(shape, seed=11).to(cuda)
     got = bench_vpu_ops.vpu_ops(x, mix)
     torch.cuda.synchronize()
@@ -625,6 +636,49 @@ def test_vpu_ops_kernel_large_k(cuda, mix):
     torch.cuda.synchronize()
     assert bench_vpu_ops.same(got, bench_vpu_ops.vpu_ops_plain(x, mix, 2051), mix) == 0
     assert torch.equal(bench_vpu_ops.vpu_ops(x, mix, 0), x)
+
+
+@pytest.mark.parametrize("k", [0, 1, 15, 16, 17, 64, 2051])
+@pytest.mark.parametrize("mix", bench_vpu_ops.MIXES)
+def test_vpu_ops_kernel_chain_lengths(cuda, mix, k):
+    """K below, at and past the kernel's unroll of 16 (the pass loop and
+    the rest of K), on three tiles with a ragged last vector; K = 0 gives x."""
+    x = _u32_patterns((3 * bench_vpu_ops.TILE - 2,), seed=100 + k).to(cuda)
+    got = bench_vpu_ops.vpu_ops(x, mix, k)
+    torch.cuda.synchronize()
+    assert bench_vpu_ops.same(got, bench_vpu_ops.vpu_ops_plain(x, mix, k), mix) == 0
+    if k == 0:
+        assert torch.equal(got, x)
+
+
+def test_vpu_ops_kernel_unaligned_input(cuda):
+    """A view 4 bytes past a 16-byte boundary: the wrapper copies it."""
+    x = _u32_patterns((2 * bench_vpu_ops.TILE + 1,), seed=16).to(cuda)[1:]
+    assert x.data_ptr() % 16
+    for mix in ("add", "mont"):
+        got = bench_vpu_ops.vpu_ops(x, mix)
+        torch.cuda.synchronize()
+        assert bench_vpu_ops.same(got, bench_vpu_ops.vpu_ops_plain(x, mix), mix) == 0
+
+
+@pytest.mark.parametrize("mix", ["mul", "shoup", "fmul"])
+def test_vpu_ops_graph_reading_chains_and_counts_calls(cuda, mix):
+    """The device reading: a graph of chained calls. Its capture adds each
+    captured call once to ``launches`` (two warm-ups outside it), its
+    replays none; every replay reads the warm-ups' last output, so the
+    chain's state after it holds 2 + 7 calls applied to x."""
+    x = _u32_patterns((2, 8, 128), seed=17).to(cuda)
+    step = timing.chain(lambda v: bench_vpu_ops.vpu_ops(v, mix, 5), x)
+    bench_vpu_ops.reset_launches()
+    ms = timing.graph_ms(step, cuda, iters=7, reps=3)
+    assert ms > 0 and bench_vpu_ops.launches == 2 + 7
+    got = step()  # one more eager call on the graph's last output
+    torch.cuda.synchronize()
+    want = x
+    for _ in range(2 + 7 + 1):
+        want = bench_vpu_ops.vpu_ops_plain(want, mix, 5)
+    assert bench_vpu_ops.launches == 2 + 7 + 1
+    assert bench_vpu_ops.same(got, want, mix) == 0
 
 
 def _probe_plan_and_input(n, rows, seed, cuda, L=2):
@@ -686,11 +740,11 @@ def test_vpu_ops_chain_not_folded(cuda, mix):
 @pytest.fixture(scope="module")
 def probe_ptxas():
     """Registers and spills of every probe kernel instance (a compile of
-    the two sources with ``-Xptxas -v``)."""
+    the three sources with ``-Xptxas -v``)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     return bench_common.ptxas_instances(
-        cuda_lib.ptxas_report(["probe_ntt_lazy.cu", "probe_ntt_anatomy.cu"]))
+        cuda_lib.ptxas_report(["probe_ntt_lazy.cu", "probe_ntt_anatomy.cu", "probe_vpu_ops.cu"]))
 
 
 @pytest.mark.parametrize("m", bench_ntt_lazy_probe.KERNEL_M)
@@ -698,6 +752,14 @@ def probe_ptxas():
 def test_redesigned_probe_instances_do_not_spill(probe_ptxas, which, m):
     mod = bench_ntt_anatomy if which == "stages" else bench_ntt_lazy_probe
     regs = bench_common.instance(probe_ptxas, mod.kernel_name(m, which))
+    assert regs["spill_stores"] == 0 and regs["spill_loads"] == 0, regs
+    assert 0 < regs["registers"] <= 255
+
+
+@pytest.mark.parametrize("mix", bench_vpu_ops.MIXES)
+def test_vpu_ops_instances_do_not_spill(probe_ptxas, mix):
+    regs = bench_common.instance(probe_ptxas,
+                                 f"vpu_ops_kernelILi{bench_vpu_ops.MIXES.index(mix)}E")
     assert regs["spill_stores"] == 0 and regs["spill_loads"] == 0, regs
     assert 0 < regs["registers"] <= 255
 

@@ -129,9 +129,9 @@ def test_main_on_cpu_prints_rates(capsys):
     res = t_vpu.main(["--device", "cpu", "--shape", "2", "8", "128", "--mixes", "add", "mont",
                       "fmul", "--iters", "1"])
     out = capsys.readouterr().out
-    assert set(res) == {"add", "mont", "fmul"}
+    assert set(res["mixes"]) == {"add", "mont", "fmul"}
     assert out.count("G applications/s") == 3 and "cpu: the plain PyTorch version" in out
-    assert all(r["mismatches"] == 0 and r["max_abs_err"] == 0 for r in res.values())
+    assert all(r["mismatches"] == 0 and r["max_abs_err"] == 0 for r in res["mixes"].values())
 
 
 def test_fold_floor_covers_every_mix():
@@ -172,3 +172,111 @@ def test_bound_counts_the_busier_pipe():
     assert abs(t_one - elems * (1 << 15) * 2 / (64 * 132 * 1.98e9) * 1e3) < 1e-9
     # at K = 64 on the probe's shape a one-instruction mix is bound by bytes
     assert t_vpu.bound_ms(elems, 64, {"fma_slots": 0.0, "alu": 0.5})[1] == "bytes"
+
+
+def test_run_on_cpu_returns_the_readings_and_no_device_share():
+    """``run``'s keys: the time per call from the graph reading (the host
+    clock on the CPU), the wrapper's pace, and the shares and summed bound,
+    which need the kernel's SASS and so are None off the card."""
+    res = t_vpu.run("cpu", shape=(1, 8, 128), mixes=("add", "fmul"), iters=1)
+    for r in res["mixes"].values():
+        assert r["ms"] > 0 and r["wrapper_ms"] > 0 and r["plain_ms"] > 0
+        assert r["share"] is None and r["k_bound_ms"] is None and "rate_ms" not in r
+    sm = res["summed"]
+    assert sm["ms"] == sum(r["ms"] for r in res["mixes"].values())
+    assert sm["wrapper_ms"] == sum(r["wrapper_ms"] for r in res["mixes"].values())
+    assert (sm["bound_ms"], sm["bound_by"], sm["share"]) == (None, None, None)
+
+
+# SASS per application of the 11 mixes on an H100 (FMA-pipe slots, ALU), as
+# chip_smoke.py's [sass] line printed them for the one-wave kernel this
+# design replaced (NVIDIA H100 80GB HBM3)
+ONE_WAVE_SASS = {"add": (0.0, 0.53), "mul": (1.0, 0.03), "addmul": (1.0, 0.03),
+                 "where_ge": (1.0, 1.03), "mulhi": (2.0, 0.03), "shoup": (3.0, 1.03),
+                 "shoup_lazy": (3.0, 0.03), "mont": (6.8, 4.2), "addmod": (1.0, 1.03),
+                 "fmul": (0.5, 0.03), "mul4_ilp": (3.11, 2.92)}
+
+
+def test_summed_bound_is_the_sum_of_each_launchs_bound():
+    """At (64, 128, 128), K = 64: a launch moves 8 MiB, 0.0025041 ms at
+    3.35 TB/s, and one issue slot per application is 2^26 / (64 x 132 x
+    1.98e9) s = 0.0040120 ms. add (0.53 ALU: 0.0021264) and fmul (0.5
+    slot: 0.0020060) are bound by their bytes, the other nine by their
+    busier pipe: 1 + 1 + 1.03 + 2 + 3 + 3 + 6.8 + 1.03 + 3.11 = 21.97
+    slots, 0.0881436 ms, plus 2 x 0.0025041 = 0.0931518 ms. The larger of the
+    summed terms, as chip_smoke.py took it before, is the summed slots
+    (21.97 + 0.53 + 0.5 = 23.00 slots, 0.0922760 ms)."""
+    sass = {m: {"fma_slots": f, "alu": a} for m, (f, a) in ONE_WAVE_SASS.items()}
+    elems, slot, bytes_ms = 64 * 128 * 128, 0.0040120, 0.0025041
+    assert abs(t_vpu.bound_ms(elems, 64, sass["mul"])[0] - slot) < 1e-7
+    assert t_vpu.bound_ms(elems, 64, sass["add"]) == pytest.approx((bytes_ms, "bytes"), abs=1e-7)
+    assert t_vpu.bound_ms(elems, 64, sass["fmul"])[1] == "bytes"
+    total, by = t_vpu.summed_bound_ms(sass, elems, 64)
+    assert by == "operations"
+    assert total == pytest.approx(21.97 * slot + 2 * bytes_ms, rel=1e-4)
+    assert total == pytest.approx(0.0931518, rel=1e-4)
+    assert total > 23.00 * slot > 11 * bytes_ms  # above max(summed operations, summed bytes)
+    # a set of launches that are all bound by their bytes is named so
+    assert t_vpu.summed_bound_ms({"add": sass["add"], "fmul": sass["fmul"]}, elems, 64) == \
+        pytest.approx((2 * bytes_ms, "bytes"), abs=1e-7)
+
+
+def test_chain_loop_is_the_innermost_loop():
+    """The redesigned kernel's SASS: a tile loop that holds the chain's pass
+    loop and the shorter loop over the rest of K; the pass loop is read."""
+    sass = [(0x00, "LDGSTS.E.BYPASS.128", ""), (0x10, "LDS.128", ""),  # tile loop from 0x10
+            (0x20, "IMAD", ""), (0x30, "IMAD", ""), (0x40, "IMAD", ""),  # pass loop from 0x20
+            (0x50, "IADD3", ""), (0x60, "BRA", "`(.L_x_2) 0x20"),
+            (0x70, "IMAD", ""), (0x80, "BRA", "`(.L_x_3) 0x70"),  # rest loop
+            (0x90, "STG.E.128", ""), (0xa0, "BRA", "`(.L_x_1) 0x10"),
+            (0xb0, "EXIT", ""), (0xc0, "BRA", "`(.L_x_4) 0xc0")]
+    assert [a for a, _, _ in t_vpu.chain_loop(sass)] == [0x20, 0x30, 0x40, 0x50]
+    # the one-wave kernel's shape: pass and rest loops side by side
+    flat = sass[2:5] + [(0x50, "BRA", "0x20"), (0x60, "IMAD", ""), (0x70, "BRA", "0x60")]
+    assert [a for a, _, _ in t_vpu.chain_loop(flat)] == [0x20, 0x30, 0x40]
+
+
+def test_tile_constants_are_the_kernels():
+    """UNROLL, ELEMS and THREADS are csrc/probe_vpu_ops.cu's kUnroll, kElems
+    and kThreads (the probes' block of probe_ntt.cuh)."""
+    import re
+
+    csrc = os.path.join(REPO, "nested_hashing_psi_tpu_torch", "csrc")
+    src = open(os.path.join(csrc, "probe_vpu_ops.cu")).read()
+    ntt = open(os.path.join(csrc, "probe_ntt.cuh")).read()
+    const = {k: int(v) for k, v in re.findall(r"constexpr int (k\w+) = (\d+);", src + ntt)}
+    assert "kThreads = nhpsi_probe::kThreads;" in src
+    assert (const["kUnroll"], const["kElems"], const["kThreads"]) == \
+        (t_vpu.UNROLL, t_vpu.ELEMS, t_vpu.THREADS)
+    assert t_vpu.TILE == t_vpu.THREADS * t_vpu.ELEMS == 1024
+
+
+def test_probe_sweep_a1_rows():
+    """probe_sweep's A1 rows from two turns of one tree: medians over the
+    turns, each launch's bound from the tree's SASS, the summed share per
+    turn and of the medians (hand arithmetic as above)."""
+    from nested_hashing_psi_tpu_torch.benchmarks import probe_sweep
+
+    def turn(add_ms, mont_ms):
+        return {"add": {"ms": add_ms, "rate_ms": 1.1, "sass": {"fma_slots": 0.0, "alu": 0.53}},
+                "mont": {"ms": mont_ms, "rate_ms": 15.0, "sass": {"fma_slots": 6.8, "alu": 4.2}}}
+    rows = probe_sweep.a1_rows([turn(0.004, 0.030), turn(0.006, 0.032)])
+    bound = 0.0025041 + 6.8 * 0.0040120
+    assert rows["summed_bound_ms"] == pytest.approx(bound, rel=1e-4)
+    assert rows["summed_bound_by"] == "operations"
+    assert rows["summed_ms_turns"] == pytest.approx([0.034, 0.038])
+    assert rows["summed_share_turns"] == pytest.approx([bound / 0.034, bound / 0.038], rel=1e-4)
+    add, mont = rows["mixes"]["add"], rows["mixes"]["mont"]
+    assert (add["ms"], mont["ms"]) == pytest.approx((0.005, 0.031))
+    assert rows["summed_ms"] == pytest.approx(0.036)
+    assert rows["summed_share"] == pytest.approx(bound / 0.036, rel=1e-4)
+    assert add["share"] == pytest.approx(0.0025041 / 0.005, rel=1e-4)
+    assert mont["rate_share"] == pytest.approx(6.8 * 0.0040120 * 512 / 15.0, rel=1e-4)
+
+
+def test_probe_sweep_tree_script_compiles():
+    """The script each tree runs on the card (A1, A2, A3) is valid Python."""
+    from nested_hashing_psi_tpu_torch.benchmarks import probe_sweep
+
+    compile(probe_sweep.RUN, "probe_sweep.RUN", "exec")
+    compile(probe_sweep.BUILD, "probe_sweep.BUILD", "exec")
