@@ -107,6 +107,15 @@
    58, then its share of its bound at P = 58, the kernel line's
    ``p58_*``) and bench_ntt_kernel, whose chained K1 is held to the plain
    chain.
+10. [goldens] (run after 6, before 9): the reference's three golden tests
+   through the port at ring 16384 (``tests/torch_golden_cases.py``, the
+   JAX package's ``tests/test_goldens_reference_scale.py`` line for line):
+   TestFHEPIE (15,000 items, SimpleFHE: one zero slot), TestBatchedFHEPIE
+   (BatchedFHE: two zeros, both batch slots) and TestFHEInnerP (slots [0,
+   1, 0, 1]), within the reference's noise bounds, each launching K1 (the
+   batched one K2 too); then ``BasisExtension`` at the main path's q ->
+   aux, bit-exact with an exact CRT on sampled coefficients, its lazy
+   variant within [0, L) q, timed beside ``extend_q_to_aux``.
 
 The A1 probe's bound counts each mix's busier pipe (bench_vpu_ops.ops_per_app:
 64 lanes per clock per SM each, a wide product two FMA-pipe slots); the
@@ -602,6 +611,110 @@ def bench_phase_fresh(smi_line: str) -> dict:
         sys.stderr.write(proc.stderr[-6000:])
         fail(f"the [bench] phase failed in its own process (exit {proc.returncode})")
     return json.loads(result[-1][len("[bench] result "):])
+
+
+GOLDEN_SAMPLE = 4096  # coefficients held to the exact CRT in the BasisExtension check
+
+
+def goldens_phase(smi_line: str) -> dict:
+    """[goldens]: the reference's three golden tests through the port at
+    their own scale (``tests/torch_golden_cases.py``, ring 16384, on the
+    card): TestFHEPIE (15,000 items, SimpleFHE: exactly one zero slot),
+    TestBatchedFHEPIE (BatchedFHE: exactly two zeros, both batch slots
+    matching) and TestFHEInnerP (merged slots [0, 1, 0, 1]), each with the
+    reference's noise bound; each must launch K1, the batched one K2 too.
+    Then ``BasisExtension`` at the main path's q -> aux (the L = 6
+    context's mul_limbs primes to BFVMulConverter's aux base) on the HPS
+    multiply's stacked operands (2, 12, 2, 5, 16384): bit-exact against an
+    exact Python-integer CRT on a seeded sample of coefficients (the
+    centered value), the lazy variant x + u*q with u in [0, L), timed
+    beside ``extend_q_to_aux`` on the same input. Any failed criterion
+    fails the run. -> seconds and launches per golden, the conversion's ms."""
+    import numpy as np
+    import torch
+
+    from nested_hashing_psi_tpu_torch.benchmarks.card import HBM_BYTES_S
+    from nested_hashing_psi_tpu_torch.fhe.params import bfv_mul_limbs
+    from nested_hashing_psi_tpu_torch.ops.basis import BasisExtension, BFVMulConverter
+    from nested_hashing_psi_tpu_torch.ops.primes import crt_reconstruct, ntt_primes
+
+    sys.path.append(os.path.join(ROOT, "tests"))  # the goldens, shared with the tests
+    import torch_golden_cases as goldens
+
+    t_phase = time.perf_counter()
+    out = {}
+    for name, fn in (("TestFHEPIE", goldens.golden_fhe_pie),
+                     ("TestBatchedFHEPIE", goldens.golden_batched_fhe_pie),
+                     ("TestFHEInnerP", goldens.golden_inner_product)):
+        try:
+            r = fn(CUDA)
+        except AssertionError as e:
+            fail(f"[goldens] {name} at ring {goldens.RING}: {e}")
+        got, zeros = r["launches"], r["zeros"]
+        if name == "TestFHEInnerP":
+            result = f"merged slots {r['slots']}"
+        else:
+            where = [tuple(int(i) for i in w) for w in np.argwhere(zeros)]
+            result = f"{int(zeros.sum())} zero slot(s) at {where} of {zeros.shape}"
+        online = f", online {r['online_s']:.3f} s" if "online_s" in r else ""
+        print(f"[goldens] {name} ring {r['ring']} L={r['L']}: {result}; noise "
+              f"{r['noise']:.1f} bits (bound {r['noise_bound']}); {r['seconds']:.2f} s"
+              f"{online} | launches {got}", flush=True)
+        if got["ntt_fwd"] <= 0 or got["ntt_inv"] <= 0:
+            fail(f"[goldens] {name} did not launch K1: {got}")
+        if name == "TestBatchedFHEPIE" and got["pie_ip"] <= 0:
+            fail(f"[goldens] {name} did not launch K2: {got}")
+        out[name] = {"seconds": r["seconds"], "online_s": r.get("online_s"),
+                     "noise": r["noise"], "noise_bound": r["noise_bound"], "launches": got}
+        del r
+        torch.cuda.empty_cache()
+
+    T, N, L = goldens.T_33, goldens.RING, 6
+    q = ntt_primes(L, 31, 2 * N, avoid=(T,))
+    q = q[:bfv_mul_limbs(T.bit_length(), L, 1, ring_dim=N)]
+    mc = BFVMulConverter(q, T, N)
+    be = BasisExtension(q, mc.aux_primes)
+    rng = np.random.default_rng(15)
+    shape = (2, 12, 2, len(q), N)
+    x_np = (rng.integers(0, 1 << 62, size=shape)
+            % np.array(q, np.int64).reshape(len(q), 1)).astype(np.int32)
+    x = torch.from_numpy(x_np).to(CUDA)
+    exact, lazy = be.convert(x).cpu().numpy(), be.convert(x, correction=False).cpu().numpy()
+    if not torch.equal(mc.extend_q_to_aux(x).cpu(), torch.from_numpy(exact)):
+        fail("[goldens] extend_q_to_aux differs from BasisExtension.convert on the card")
+    cols = x_np.reshape(-1, len(q), N)
+    pick = rng.integers(0, cols.shape[0] * N, size=GOLDEN_SAMPLE)
+    aux = list(mc.aux_primes)
+    ex, lz = exact.reshape(-1, len(aux), N), lazy.reshape(-1, len(aux), N)
+    us, bad = set(), 0
+    for k in pick:
+        row, j = divmod(int(k), N)
+        v = crt_reconstruct([int(r) for r in cols[row, :, j]], q)
+        vc = v - be.q if v > be.q // 2 else v
+        bad += any(int(ex[row, i, j]) != vc % b for i, b in enumerate(aux))
+        u, rem = divmod(crt_reconstruct([int(r) for r in lz[row, :, j]], aux) - v, be.q)
+        if rem or not 0 <= u < len(q):
+            fail(f"[goldens] lazy BasisExtension at column {k}: {v} + {u} q + {rem}")
+        us.add(u)
+    if bad:
+        fail(f"[goldens] BasisExtension differs from the exact CRT at {bad} of "
+             f"{GOLDEN_SAMPLE} sampled coefficients")
+    be_ms = time_ms(lambda: be.convert(x), CUDA, 20)
+    lazy_ms = time_ms(lambda: be.convert(x, correction=False), CUDA, 20)
+    ext_ms = time_ms(lambda: mc.extend_q_to_aux(x), CUDA, 20)
+    bytes_ms = (x.numel() + exact.size) * 4 / HBM_BYTES_S * 1e3
+    print(f"[goldens] BasisExtension q ({len(q)} limbs) -> aux ({len(aux)} limbs) at "
+          f"{shape}: bit-exact with the exact CRT on {GOLDEN_SAMPLE} sampled coefficients "
+          f"(the centered value); lazy x + u*q with u in {sorted(us)}; {be_ms:.4f} ms "
+          f"(lazy {lazy_ms:.4f} ms), extend_q_to_aux {ext_ms:.4f} ms on the same input "
+          f"(CUDA events); bytes bound {bytes_ms:.4f} ms | {smi_line}", flush=True)
+    out["basis_extension"] = {"ms": be_ms, "lazy_ms": lazy_ms, "extend_q_to_aux_ms": ext_ms,
+                              "bytes_bound_ms": bytes_ms, "sample": GOLDEN_SAMPLE}
+    del x
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"[goldens] phase {out['phase_s']:.2f} s", flush=True)
+    return out
 
 
 def max_err(got, want, name: str) -> int:
@@ -1432,6 +1545,9 @@ def main() -> None:
     print(f"[main] kernel launches over all six runs {launches}", flush=True)
     torch.cuda.empty_cache()
 
+    # ---- [goldens]: the reference's golden tests at ring 16384 -----------
+    golden_times = goldens_phase(smi_line)
+
     # ---- [bench]: the port's bench and eval tools at full size -----------
     bench_out = bench_phase_fresh(smi_line)
 
@@ -1574,6 +1690,7 @@ def main() -> None:
                                moves_over_full=anat["moves"]["ms"] / anat["k1_ms"]))
     print(f"[elgamal] times {json.dumps(elgamal_times)}", flush=True)
     print(f"[checkpoint] times {json.dumps(checkpoint_times)}", flush=True)
+    print(f"[goldens] times {json.dumps(golden_times)}", flush=True)
     print(f"[parallel] times {json.dumps({k: v for k, v in parallel.items() if k != 'launches'})}",
           flush=True)
     print(f"[bench] phase {bench_out['phase_s']:.2f} s, wrapper calls "

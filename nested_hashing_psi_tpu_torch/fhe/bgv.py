@@ -45,11 +45,17 @@ from nested_hashing_psi_tpu_torch.ops.primes import centered, crt_reconstruct
 
 def tensor_product(a, b, p, pinv, r2):
     """(c0 + c1*s) x (d0 + d1*s) over one RNS base, NTT domain:
-    a, b int32 (..., 2, L, N) -> (..., 3, L, N). Karatsuba: 3 REDC
-    multiplies, the middle term being (a0+a1)(b0+b1) - d0 - d2 (Montgomery
-    form is linear, so the operand sums stay valid REDC inputs)."""
+    a, b int32 (..., 2, L, N) -> (..., 3, L, N)."""
     b0m = to_mont(b[..., 0, :, :], p, pinv, r2)
     b1m = to_mont(b[..., 1, :, :], p, pinv, r2)
+    return tensor_product_mont(a, b0m, b1m, p, pinv)
+
+
+def tensor_product_mont(a, b0m, b1m, p, pinv):
+    """tensor_product with the second operand's components already in
+    Montgomery form. Karatsuba: 3 REDC multiplies, the middle term being
+    (a0+a1)(b0+b1) - d0 - d2 (Montgomery form is linear, so the operand sums
+    stay valid REDC inputs)."""
     a0, a1 = a[..., 0, :, :], a[..., 1, :, :]
     d0 = mont_mul(a0, b0m, p, pinv)
     d2 = mont_mul(a1, b1m, p, pinv)

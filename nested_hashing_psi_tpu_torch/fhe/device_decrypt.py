@@ -27,9 +27,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from nested_hashing_psi_tpu_torch.fhe.encoding import _bitrev
 from nested_hashing_psi_tpu_torch.ops import mod64
 from nested_hashing_psi_tpu_torch.ops.modmath import MASK32, add_mod, mont_mul, shoup_host, shoup_mul
+from nested_hashing_psi_tpu_torch.ops.refmodel import _bitrev
 
 
 class DeviceDecryptor:

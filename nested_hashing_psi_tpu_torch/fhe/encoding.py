@@ -1,9 +1,9 @@
 """SIMD packed plaintext encoding (slot packing), host numpy.
 
-A copy of ``nested_hashing_psi_tpu.fhe.encoding`` together with the numpy
-NTT of ``ops/refmodel.py`` (``ntt_numpy``/``intt_numpy``), which it reaches
-in a jax-loading module; ``slot_to_ntt_pos`` is the port's ``fhe/galois.py``
-copy, re-exported here. tests/test_torch_host_copies.py pins ``encode``,
+A copy of ``nested_hashing_psi_tpu.fhe.encoding``; its numpy NTTs
+(``ntt_numpy``/``intt_numpy``) are the port's ``ops/refmodel.py`` and
+``slot_to_ntt_pos`` is the port's ``fhe/galois.py`` copy, both re-exported
+here. tests/test_torch_host_copies.py pins ``encode``,
 ``to_rns`` and ``decode`` equal to the originals.
 
 For prime t with 2n | t-1 the ring Z_t[x]/(x^n+1) fully splits: the
@@ -24,60 +24,7 @@ import numpy as np
 
 from nested_hashing_psi_tpu_torch.fhe.galois import slot_to_ntt_pos
 from nested_hashing_psi_tpu_torch.ops import primes as primes_mod
-
-
-def _bitrev(n: int) -> np.ndarray:
-    logn = n.bit_length() - 1
-    idx = np.arange(n)
-    rev = np.zeros(n, dtype=np.int64)
-    for b in range(logn):
-        rev |= ((idx >> b) & 1) << (logn - 1 - b)
-    return rev
-
-
-def ntt_numpy(a: np.ndarray, p: int, psi: int) -> np.ndarray:
-    """Forward negacyclic NTT mod p < 2**32 (merged-twiddle Cooley-Tukey,
-    natural -> bit-reversed order). uint64 products are exact."""
-    n = a.shape[-1]
-    logn = n.bit_length() - 1
-    rev = _bitrev(n)
-    psi_rev = np.array([pow(psi, int(r), p) for r in rev], dtype=np.uint64)
-    x = a.astype(np.uint64) % p
-    bshape = a.shape[:-1]
-    pp = np.uint64(p)
-    m, t = 1, n
-    for _ in range(logn):
-        t //= 2
-        x = x.reshape(*bshape, m, 2, t)
-        s = psi_rev[m:2 * m][:, None]
-        u = x[..., 0, :]
-        v = x[..., 1, :] * s % pp
-        x = np.stack([(u + v) % pp, (u - v + pp) % pp], axis=-2)
-        m *= 2
-    return x.reshape(*a.shape)
-
-
-def intt_numpy(a: np.ndarray, p: int, psi: int) -> np.ndarray:
-    """Inverse of ntt_numpy (Gentleman-Sande, bit-reversed -> natural)."""
-    n = a.shape[-1]
-    rev = _bitrev(n)
-    psi_inv = pow(psi, -1, p)
-    ipsi_rev = np.array([pow(psi_inv, int(r), p) for r in rev], dtype=np.uint64)
-    x = a.astype(np.uint64) % p
-    bshape = a.shape[:-1]
-    pp = np.uint64(p)
-    m, t = n, 1
-    while m > 1:
-        h = m // 2
-        x = x.reshape(*bshape, h, 2, t)
-        s = ipsi_rev[h:2 * h][:, None]
-        u = x[..., 0, :]
-        v = x[..., 1, :]
-        x = np.stack([(u + v) % pp, (u - v + pp) % pp * s % pp], axis=-2)
-        t *= 2
-        m = h
-    x = x.reshape(*a.shape)
-    return x * np.uint64(pow(n, -1, p)) % pp
+from nested_hashing_psi_tpu_torch.ops.refmodel import _bitrev, intt_numpy, ntt_numpy
 
 
 def _ntt_object(a: np.ndarray, p: int, psi: int, inverse: bool) -> np.ndarray:

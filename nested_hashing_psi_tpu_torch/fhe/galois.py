@@ -24,14 +24,13 @@ import functools
 import numpy as np
 
 from nested_hashing_psi_tpu_torch.ops import primes as primes_mod
+from nested_hashing_psi_tpu_torch.ops.refmodel import ntt_numpy
 
 
 @functools.lru_cache(maxsize=None)
 def ntt_exponent_map(n: int) -> tuple[np.ndarray, dict[int, int]]:
     """(E, pos_of_exp): E[pos] = odd exponent e with NTT-output position pos
     evaluating at psi^e; pos_of_exp its inverse."""
-    from nested_hashing_psi_tpu_torch.fhe.encoding import ntt_numpy
-
     p0 = primes_mod.ntt_primes(1, 31, 2 * n)[0]
     psi0 = primes_mod.primitive_root_of_unity(p0, 2 * n)
     mono = np.zeros(n, dtype=np.uint64)

@@ -1,9 +1,10 @@
 """RNS base conversions of the BFV rescaled-mult pipeline (plain PyTorch).
 
-Counterpart of ``nested_hashing_psi_tpu.ops.basis``: ``RNSRescale`` (the
-exact drop-limb BFV modulus switch) and ``BFVMulConverter`` (textbook HPS
-ct x ct: q -> aux extension, t/q scale-and-round, exact Shenoy-Kumaresan
-aux -> q). ``BasisExtension`` is not on the main path and is not ported.
+Counterpart of ``nested_hashing_psi_tpu.ops.basis``: ``BasisExtension``
+(the HPS fast base conversion from a base q to a disjoint base B),
+``RNSRescale`` (the exact drop-limb BFV modulus switch) and
+``BFVMulConverter`` (textbook HPS ct x ct: the q -> aux extension, which is
+a ``BasisExtension``, t/q scale-and-round, exact Shenoy-Kumaresan aux -> q).
 The host constants are the reference's numpy arrays; ``_consts(device)``
 lifts them to int64 tensors once per device.
 
@@ -63,6 +64,66 @@ class _DeviceConsts:
                 )
             cache[device] = out
         return cache[device]
+
+
+class BasisExtension(_DeviceConsts):
+    """Fast base conversion from RNS base ``src`` to disjoint base ``dst``.
+
+    With y_i = [x_i * (q/q_i)^{-1}]_{q_i}, x = sum_i y_i * (q/q_i) - v*q for
+    v = round(sum_i y_i / q_i), so [x]_{b_j} = sum_i y_i * [q/q_i]_{b_j} -
+    v * [q]_{b_j}. The overflow count v is a float64 estimate: a boundary
+    miss leaves the result off by +-q, which HPS's noise analysis absorbs.
+    Every multiply has a precomputed constant operand (Shoup form).
+    """
+
+    _CONSTS = ("src_p", "dst_p", "qhat_inv", "qhat_mod_b", "q_mod_b", "_inv_src_np")
+
+    def __init__(self, src_primes, dst_primes):
+        src = [int(p) for p in src_primes]
+        dst = [int(p) for p in dst_primes]
+        if set(src) & set(dst):
+            raise ValueError("bases must be disjoint")
+        self.src_primes, self.dst_primes = tuple(src), tuple(dst)
+        L, K = len(src), len(dst)
+        q = math.prod(src)
+        self.q = q
+
+        src_a = np.array(src, np.uint32).reshape(L, 1)
+        dst_a = np.array(dst, np.uint32).reshape(K, 1)
+        self.src_p = src_a
+        self.dst_p = dst_a
+        # [(q/q_i)^{-1}]_{q_i}, shaped (L, 1)
+        self.qhat_inv = _shoup_pair(
+            np.array([pow(q // p, -1, p) for p in src], np.uint64).reshape(L, 1), src_a
+        )
+        # [(q/q_i)]_{b_j}, shaped (L, K, 1)
+        qhat_mod_b = np.zeros((L, K, 1), np.uint64)
+        for i, p in enumerate(src):
+            for j, b in enumerate(dst):
+                qhat_mod_b[i, j, 0] = (q // p) % b
+        self.qhat_mod_b = _shoup_pair(qhat_mod_b, dst_a[None])
+        self.q_mod_b = _shoup_pair(
+            np.array([q % b for b in dst], np.uint64).reshape(K, 1), dst_a
+        )
+        self._inv_src_np = np.array([1.0 / p for p in src]).reshape(L, 1)
+
+    def convert(self, x: torch.Tensor, correction: bool = True) -> torch.Tensor:
+        """(..., L, N) coefficient-domain residues over src -> (..., K, N)
+        over dst. Exact up to a possible +-q boundary miss (correction=True),
+        or x + u*q for some u in [0, L) (correction=False, the lazy variant
+        that skips the overflow count)."""
+        c = self._consts(x.device)
+        dst_p = c["dst_p"]
+        y = shoup_mul(x, *c["qhat_inv"], c["src_p"])
+        # y_i < 2**31: Shoup needs no cross-prime pre-reduction
+        terms = shoup_mul(y[..., :, None, :], *c["qhat_mod_b"], dst_p)
+        acc = modsum(terms, dst_p, axis=-3)  # (..., K, N)
+        if not correction:
+            return acc
+        # float64, summed over the limbs as the reference's jnp.sum(axis=-2)
+        v = torch.round(torch.sum(y.double() * c["_inv_src_np"], dim=-2)).long()
+        vq = shoup_mul(v[..., None, :], *c["q_mod_b"], dst_p)
+        return sub_mod(acc, vq, dst_p)
 
 
 class RNSRescale(_DeviceConsts):
@@ -139,9 +200,8 @@ class BFVMulConverter(_DeviceConsts):
     2*|y|); ``plan_aux`` is its NTT plan.
     """
 
-    _CONSTS = ("p_q", "p_aux", "qhat_inv_q", "t_q", "inv_q_f", "qhat_mod_aux",
-               "q_mod_aux", "t_aux", "qinv_aux", "c_mod_aux", "c_mod_q", "p_b",
-               "bhat_inv", "bhat_mod_q", "bhat_mod_mr", "B_mod_q", "Binv_mr",
+    _CONSTS = ("p_q", "p_aux", "t_q", "t_aux", "qinv_aux", "c_mod_aux", "c_mod_q",
+               "p_b", "bhat_inv", "bhat_mod_q", "bhat_mod_mr", "B_mod_q", "Binv_mr",
                "p_mr")
 
     def __init__(self, q_primes, t: int, ring_dim: int):
@@ -172,22 +232,9 @@ class BFVMulConverter(_DeviceConsts):
         aux_a = np.array(aux, np.uint32).reshape(KA, 1)
         self.p_q = q_a
         self.p_aux = aux_a
-        self.qhat_inv_q = _shoup_pair(
-            np.array([pow(q // p, -1, p) for p in q_list], np.uint64).reshape(L, 1),
-            q_a,
-        )
+        self.q_to_aux = BasisExtension(q_list, aux)
         self.t_q = _shoup_pair(
             np.array([t % p for p in q_list], np.uint64).reshape(L, 1), q_a
-        )
-        self.inv_q_f = np.array([1.0 / p for p in q_list]).reshape(L, 1)
-
-        qhat_mod_aux = np.zeros((L, KA, 1), np.uint64)
-        for i, p in enumerate(q_list):
-            for j, b in enumerate(aux):
-                qhat_mod_aux[i, j, 0] = (q // p) % b
-        self.qhat_mod_aux = _shoup_pair(qhat_mod_aux, aux_a[None])
-        self.q_mod_aux = _shoup_pair(
-            np.array([q % b for b in aux], np.uint64).reshape(KA, 1), aux_a
         )
         self.t_aux = _shoup_pair(
             np.array([t % b for b in aux], np.uint64).reshape(KA, 1), aux_a
@@ -229,17 +276,8 @@ class BFVMulConverter(_DeviceConsts):
         """(..., L, N) coefficient-domain residues over q -> (..., K+1, N)
         over aux, centered representative up to a rare +-q float miss.
         correction=False skips the float overflow count (result x + u*q,
-        u in [0, L))."""
-        c = self._consts(x.device)
-        p_aux = c["p_aux"]
-        y = shoup_mul(x, *c["qhat_inv_q"], c["p_q"])
-        terms = shoup_mul(y[..., :, None, :], *c["qhat_mod_aux"], p_aux)
-        acc = modsum(terms, p_aux, axis=-3)  # (..., K+1, N)
-        if not correction:
-            return acc
-        v = torch.round(torch.sum(y.double() * c["inv_q_f"], dim=-2)).long()
-        vq = shoup_mul(v[..., None, :], *c["q_mod_aux"], p_aux)
-        return sub_mod(acc, vq, p_aux)
+        u in [0, L)): ``BasisExtension.convert`` from q to aux."""
+        return self.q_to_aux.convert(x, correction)
 
     def scale_round(self, d_q: torch.Tensor, d_aux: torch.Tensor) -> torch.Tensor:
         """y = round(t*d/q) over aux from d's coefficient-domain residues

@@ -9,7 +9,7 @@ floor(x*w/t) by at most 1, so r = (x*w - q*t) mod 2**64 lies in [0, 2t)).
 
 Torch on the CPU has no uint32 or uint64 add, shift or compare, so each
 plane is an int64 tensor holding a value in [0, 2**32), and every product of
-two planes is assembled from 16-bit halves (``modmath._mulhi32`` /
+two planes is assembled from 16-bit halves (``modmath.mulhi_u32`` /
 ``_mullo32``) so that no partial product reaches 2**63. The same code runs
 on the CPU and the GPU, and every function returns exactly the planes the
 JAX package's uint32 version returns.
@@ -20,7 +20,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from nested_hashing_psi_tpu_torch.ops.modmath import MASK32, _mulhi32, _mullo32
+from nested_hashing_psi_tpu_torch.ops.modmath import MASK32, _mullo32, mulhi_u32
 
 
 def split_u64(x: int) -> tuple[int, int]:
@@ -44,16 +44,16 @@ def _addc(a, b):
 def mul64_lo(x0, x1, w0, w1):
     """Low 64 bits of (x0 + 2^32 x1) * (w0 + 2^32 w1), as (lo, hi) planes."""
     l0 = _mullo32(x0, w0)
-    l1 = (_mulhi32(x0, w0) + _mullo32(x0, w1) + _mullo32(x1, w0)) & MASK32
+    l1 = (mulhi_u32(x0, w0) + _mullo32(x0, w1) + _mullo32(x1, w0)) & MASK32
     return l0, l1
 
 
 def mul64_hi(x0, x1, w0, w1):
     """High 64 bits (bits 64..127) of the full 128-bit product."""
-    h00 = _mulhi32(x0, w0)
-    l01, h01 = _mullo32(x0, w1), _mulhi32(x0, w1)
-    l10, h10 = _mullo32(x1, w0), _mulhi32(x1, w0)
-    l11, h11 = _mullo32(x1, w1), _mulhi32(x1, w1)
+    h00 = mulhi_u32(x0, w0)
+    l01, h01 = _mullo32(x0, w1), mulhi_u32(x0, w1)
+    l10, h10 = _mullo32(x1, w0), mulhi_u32(x1, w0)
+    l11, h11 = _mullo32(x1, w1), mulhi_u32(x1, w1)
     s1, c1a = _addc(h00, l01)
     _, c1b = _addc(s1, l10)
     s2, c2a = _addc(h01, h10)

@@ -28,9 +28,19 @@ def _w(x):
     return x.long() if isinstance(x, torch.Tensor) else x
 
 
-def _mulhi32(a, b):
-    """floor(a * b / 2**32) for a, b in [0, 2**32), exact in int64 (b is
-    split into 16-bit halves so no partial product reaches 2**63)."""
+def _u32(x):
+    """x's uint32 value: an int32 tensor holds the JAX package's uint32 bits
+    (read back as [0, 2**32)); int64 tensors and ints already hold it."""
+    if isinstance(x, torch.Tensor) and x.dtype == torch.int32:
+        return x.long() & MASK32
+    return x
+
+
+def mulhi_u32(a, b):
+    """High 32 bits of the 64-bit product of two uint32 values:
+    floor(a * b / 2**32) as int64 in [0, 2**32), exact (b is split into
+    16-bit halves so no partial product reaches 2**63)."""
+    a, b = _u32(a), _u32(b)
     return (a * (b >> 16) + ((a * (b & MASK16)) >> 16)) >> 16
 
 
@@ -58,7 +68,7 @@ def shoup_mul(x, w, wq, p):
     """x*w mod p with Shoup's precomputed quotient wq = floor(w * 2**32 / p).
     Valid for any x < 2**32 and w < p < 2**31; output < p."""
     x, w, p = _w(x), _w(w), _w(p)
-    q = _mulhi32(x, _w(wq))
+    q = mulhi_u32(x, _w(wq))
     r = x * w - q * p                      # exact: r in [0, 2p)
     return torch.where(r >= p, r - p, r).int()
 
@@ -101,6 +111,17 @@ def to_mont(a, p, pinv, r2):
     return mont_mul(a, r2, p, pinv)
 
 
+def from_mont(a, p, pinv):
+    """a*R mod p -> a."""
+    return mont_mul(a, 1, p, pinv)
+
+
+def mul_mod(a, b, p, pinv, r2):
+    """Generic a*b mod p (two REDC passes). Prefer mont_mul with a
+    pre-scaled constant operand in hot paths."""
+    return mont_mul(a, to_mont(b, p, pinv, r2), p, pinv)
+
+
 # ---------------------------------------------------------------------------
 # Host-side precomputation of per-prime Montgomery constants.
 # ---------------------------------------------------------------------------
@@ -111,3 +132,8 @@ def mont_constants(p: int) -> tuple[int, int]:
     pinv = (-pow(p, -1, 1 << 32)) % (1 << 32)
     r2 = pow(2, 64, p)
     return pinv, r2
+
+
+def to_mont_host(x: int, p: int) -> int:
+    """Host-side Montgomery form x*R mod p (R = 2**32)."""
+    return (x << 32) % p

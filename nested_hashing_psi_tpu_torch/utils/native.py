@@ -1,8 +1,8 @@
 """ctypes loader/builder for the native host kernels (native/nhpsi_native.cpp).
 
-The port's own copy of the two entry points it takes from
-``nested_hashing_psi_tpu.utils.native`` (``ntt_mod_t``, ``phase_to_mt``),
-with the same behaviour: the port imports nothing of the JAX package. The
+The port's own copy of ``nested_hashing_psi_tpu.utils.native``'s entry
+points (``ntt_mod_t``, ``phase_to_mt``, ``cuckoo_insert_seq``), with the
+same behaviour: the port imports nothing of the JAX package. The
 source is the repository's ``native/nhpsi_native.cpp``; it is compiled with
 g++ on first use into ``build/nhpsi_torch/`` (ignored by git), apart from
 the JAX package's build, and every caller has a pure-Python fallback, so a
@@ -95,6 +95,11 @@ def get_lib():
                 _U64P, ctypes.c_int64, ctypes.c_int64, ctypes.c_uint64,
                 ctypes.c_uint64, ctypes.c_int,
             ]
+            lib.cuckoo_insert_seq.restype = ctypes.c_int64
+            lib.cuckoo_insert_seq.argtypes = [
+                _U64P, ctypes.c_int64, _U64P, ctypes.c_int, ctypes.c_int, ctypes.c_int64,
+                ctypes.c_int64, ctypes.c_int, ctypes.c_int64, ctypes.c_uint64, _U64P, _U64P,
+            ]
             lib.phase_to_mt.restype = ctypes.c_double
             lib.phase_to_mt.argtypes = [
                 _U64P, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
@@ -173,3 +178,54 @@ def phase_to_mt(
         _u64ptr(out),
     )
     return out.reshape(*lead, n), float(dist)
+
+
+def cuckoo_insert_seq(
+    items: np.ndarray,
+    hash_table: np.ndarray,
+    starting_hash_id: int,
+    n_hf: int,
+    size: int,
+    max_pp: int,
+    multi_table: bool,
+    stash_size: int,
+    seed: int,
+):
+    """Reference-style sequential cuckoo insertion (the reference's
+    CuckooHashTable semantics: lookUp skip, 1000 eviction rounds, random
+    victim depth from an xorshift stream seeded with ``seed``). items:
+    (n, 2) uint64; hash_table: the tabulation table (n_hf, 16, 256).
+    Returns (table (n_tables, max_pp, size, 2), stash (stash_size, 2),
+    n_failures) or None if the native lib is unavailable."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    items = np.ascontiguousarray(items, dtype=np.uint64)
+    hash_table = np.ascontiguousarray(hash_table, dtype=np.uint64)
+    # the C loop reads these bounds unchecked
+    if items.ndim != 2 or items.shape[1] != 2:
+        raise ValueError(f"items must be (n, 2) uint64, got {items.shape}")
+    if hash_table.shape[1:] != (16, 256) or not 0 <= starting_hash_id <= \
+            hash_table.shape[0] - n_hf:
+        raise ValueError(f"hash functions [{starting_hash_id}, {starting_hash_id + n_hf}) "
+                         f"not in a tabulation table of shape {hash_table.shape}")
+    if min(n_hf, size, max_pp) < 1 or stash_size < 0:
+        raise ValueError("n_hf, size and max_pp must be positive, stash_size >= 0")
+    n_tables = n_hf if multi_table else 1
+    table = np.zeros((n_tables, max_pp, size, 2), dtype=np.uint64)
+    stash = np.zeros((max(stash_size, 1), 2), dtype=np.uint64)
+    failures = lib.cuckoo_insert_seq(
+        _u64ptr(items),
+        len(items),
+        _u64ptr(hash_table),
+        starting_hash_id,
+        n_hf,
+        size,
+        max_pp,
+        1 if multi_table else 0,
+        stash_size,
+        seed,
+        _u64ptr(table),
+        _u64ptr(stash),
+    )
+    return table, stash[:stash_size], int(failures)

@@ -360,6 +360,20 @@ _NO_JAX_SCRIPT = textwrap.dedent("""
                                    "--ranks", "2"])
         assert all(r.get("bit_equal", True) for r in rep["rows"])
         print("TOOLS_STAND_ALONE")
+        from nested_hashing_psi_tpu_torch.ops import refmodel
+        from nested_hashing_psi_tpu_torch.ops.basis import BasisExtension
+        from nested_hashing_psi_tpu_torch.utils import native
+        import torch_golden_cases as goldens
+
+        p = ntt_primes(1, 31, 32)[0]
+        assert refmodel.negacyclic_mul_naive(np.ones(16), np.ones(16), p)[15] == 16
+        BasisExtension(ps, ntt_primes(3, 31, 128, avoid=ps)).convert(
+            torch.from_numpy(x.view(np.int32)))
+        assert native.cuckoo_insert_seq(np.ones((1, 2), np.uint64), np.ones((1, 16, 256),
+                                        np.uint64), 0, 1, 4, 1, True, 0, 1)[2] == 0
+        assert goldens.golden_inner_product("cpu", 16)["slots"] == [0, 1, 0, 1]
+        assert goldens.golden_batched_fhe_pie("cpu", 16)["zeros"].sum() == 2
+        print("GOLDENS_STAND_ALONE")
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith(("jax.", "nested_hashing_psi_tpu."))
                      or m == "nested_hashing_psi_tpu")
@@ -379,9 +393,11 @@ def test_port_imports_nothing_of_jax_or_the_jax_package(tmp_path):
     ranks (parallel.launch, the tests' rank program), and every bench and
     eval tool (hashing.evaluation and benchmarks/: bench, profile_online,
     bench_pie_online, bench_ntt_kernel, bench_ntt_f32mxu, comm_model,
-    summarize_eval, run_eval, scaling_report with two spawned gloo ranks) at
-    small sizes on the CPU, in a fresh interpreter where neither jax nor the
-    JAX package can be imported (stubs that raise shadow them, for the
+    summarize_eval, run_eval, scaling_report with two spawned gloo ranks),
+    ops.refmodel, BasisExtension, the native cuckoo insert and the goldens'
+    module (tests/torch_golden_cases.py: TestFHEInnerP and TestBatchedFHEPIE
+    at ring 16) at small sizes on the CPU, in a fresh interpreter where
+    neither jax nor the JAX package can be imported (stubs that raise shadow them, for the
     spawned workers and ranks too); afterwards neither is in sys.modules."""
     for name in ("nested_hashing_psi_tpu", "jax"):
         stub = tmp_path / "stub" / name
@@ -397,6 +413,7 @@ def test_port_imports_nothing_of_jax_or_the_jax_package(tmp_path):
     assert res.returncode == 0, res.stderr[-3000:]
     assert "Set matches!" in res.stdout and "PORT_STANDS_ALONE" in res.stdout
     assert "RANKS_STAND_ALONE" in res.stdout and "TOOLS_STAND_ALONE" in res.stdout
+    assert "GOLDENS_STAND_ALONE" in res.stdout
     assert res.stdout.count("G applications/s") == 11
     assert "[ntt_lazy]" in res.stdout and "[ntt_anatomy]" in res.stdout
     assert "RESUME RESULT: Set matches!" in res.stdout and "[profile_build] {" in res.stdout

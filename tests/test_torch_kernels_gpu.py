@@ -9,8 +9,9 @@ K1 (ops/ntt_cuda.py), K2 (ops/pie_kernels.py) and K3 (ops/ntt_mxu.py) must
 equal their plain versions bit for bit (integer residues: exact equality),
 and K3 must equal K1. The on-device decrypt must give the host decrypt's
 zero mask, ``mod_switch`` and ``automorphism`` on the card must equal the
-port on the CPU, and the streamed protocol, the host-resident table,
-``--bgv`` and SimpleFHE must verify on the card.
+port on the CPU, the streamed protocol, the host-resident table,
+``--bgv`` and SimpleFHE must verify on the card, and so must the
+reference's three golden tests at ring 16384 (``torch_golden_cases``).
 """
 
 import numpy as np
@@ -872,3 +873,18 @@ def test_bench_query0_mask_on_the_card(cuda):
     assert res["query0_mask_equals_host_decrypt"] and res["pipeline_Q"] == 4
     assert min(res[k] for k in ("ms_per_query", "ms_per_query_single", "ms_per_query_steady",
                                 "ms_per_query_device")) > 0
+
+
+@pytest.mark.parametrize("golden", ["golden_fhe_pie", "golden_batched_fhe_pie",
+                                    "golden_inner_product"])
+def test_reference_golden_at_ring_16384(cuda, golden):
+    """The reference's golden tests through the port at their own scale
+    (ring 16384; tests/torch_golden_cases.py raises on any failed pass
+    criterion): K1 launched in each, K2 in the batched PIE."""
+    import torch_golden_cases
+
+    out = getattr(torch_golden_cases, golden)(cuda)
+    assert out["noise"] < out["noise_bound"]
+    launched = out["launches"]
+    assert launched["ntt_fwd"] > 0 and launched["ntt_inv"] > 0
+    assert (launched["pie_ip"] > 0) == (golden == "golden_batched_fhe_pie")
