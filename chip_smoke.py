@@ -17,9 +17,11 @@
    torch._int_mm from a CUDA graph; K3 has no caller on the protocol path,
    so its launches come from this phase). The [sass] step counts K3's
    wgmma (IGMMA) and bulk-copy (UBLKCP, UTMALDG) instructions and fails
-   without them. Then K2 at flat --bgv's L = 9, K1 at the BGV paths' shapes
-   (the full-basis relin decompose at L = 9, the leveled chain's switches
-   and relin at 6 and 5 limbs, the SimpleFHE Galois key switches), and
+   without them. Then K2 at flat --bgv's L = 9 and at [multihost]'s shapes
+   (L = 8, P = 8, D = 8 and 16), K1 at the BGV paths' shapes (the
+   full-basis relin decompose at L = 9, the leveled chain's switches and
+   relin at 6 and 5 limbs, the SimpleFHE Galois key switches, [multihost]'s
+   relin at L = 8 over 8 and 16 depths), and
    ``mod_switch`` on the card against the port on the CPU (bit-equal).
    The [sass] step also counts the three probes' instructions (A1 per
    application of each op mix, by pipe, failing if a chain was folded:
@@ -116,6 +118,15 @@
    batched one K2 too); then ``BasisExtension`` at the main path's q ->
    aux, bit-exact with an exact CRT on sampled coefficients, its lazy
    variant within [0, L) q, timed beside ``extend_q_to_aux``.
+11. [multihost] (run after 8): the port's scaling report in its
+   multi-process mode (``benchmarks/scaling_report.py --num-processes 2``),
+   two processes launched on their own (``tests/torch_processes.py``), joined at
+   ``tcp://127.0.0.1:<free port>`` through gloo on the one card, at ring
+   16384, L = 8, D = 16, dp 2 x tp 1; each loads the kernel library built
+   here. Row (c) must be bit-equal with the unsharded step and each
+   process must launch K1 (both directions) and K2 over its timed queries
+   (the kernel line's ``multihost_launches``, summed over both); prints
+   the rows' ms per query beside the card's name and power limit.
 
 The A1 probe's bound counts each mix's busier pipe (bench_vpu_ops.ops_per_app:
 64 lanes per clock per SM each, a wide product two FMA-pipe slots); the
@@ -508,6 +519,76 @@ def parallel_phase(runs: dict, smi_line: str) -> dict:
           f"{PAR_WORLD} staged ranks {staged_s:.2f} s, their start included); launches "
           f"{totals}; the four ranks share one card, so their times measure the "
           f"transport and the per-rank compute, not scale-out | card {smi_line}", flush=True)
+    return out
+
+
+# [multihost]: the scaling report's multi-process mode, the README's row:
+# two processes on the one card, joined over TCP, gloo staged through host
+# memory (NCCL refuses two ranks on one card)
+MULTIHOST_ARGS = ["--device", "cuda", "--backend", "gloo", "--ring", "16384", "--limbs", "8",
+                  "--depths", "16", "--tp", "1"]
+MULTIHOST_PROCESSES = 2
+MULTIHOST_TIMEOUT = 300.0  # s, for both processes together
+MULTIHOST_LABEL = f"{MULTIHOST_PROCESSES} processes, dp {MULTIHOST_PROCESSES} x tp 1, gloo"
+
+
+def multihost_phase(smi_line: str) -> dict:
+    """[multihost]: ``benchmarks/scaling_report.py`` of the port as two
+    processes launched on their own (``tests/torch_processes.py``, one
+    ``--process-id`` each), joined at ``tcp://127.0.0.1:<free port>``
+    through gloo, at ring 16384, L = 8, D = 16, dp 2 x tp 1. They load the
+    kernel library this process built. Fails unless both exit 0, process
+    0's report has row (c) bit-equal with the unsharded step, each process
+    launched K1 (both directions) and K2 over its timed queries, and the
+    report's card line names an H100. K1 and K2 are held against their
+    plain versions at this phase's shapes in the kernel section.
+    -> the rows, the launches, seconds."""
+    sys.path.append(os.path.join(ROOT, "tests"))  # the process harness, shared with the tests
+    from torch_processes import free_port, run_processes
+
+    t_phase = time.perf_counter()
+    coord = f"tcp://127.0.0.1:{free_port()}"  # taken just before the processes start
+    with tempfile.TemporaryDirectory(prefix="nhpsi_multihost_") as tmp:
+        codes, outs, timed_out = run_processes(
+            [[sys.executable, "-m", "nested_hashing_psi_tpu_torch.benchmarks.scaling_report",
+              *MULTIHOST_ARGS, "--coordinator", coord, "--num-processes",
+              str(MULTIHOST_PROCESSES), "--process-id", str(i)]
+             for i in range(MULTIHOST_PROCESSES)], tmp, MULTIHOST_TIMEOUT, ROOT)
+    if codes != [0] * MULTIHOST_PROCESSES:
+        for i, out in enumerate(outs):
+            sys.stderr.write(f"--- [multihost] process {i} (exit {codes[i]}):\n{out[-4000:]}\n")
+        fail(f"[multihost] the processes exited with {codes}"
+             + (f" (killed at the {MULTIHOST_TIMEOUT:.0f} s limit)" if timed_out else ""))
+    lines = [line for line in outs[0].splitlines() if line.startswith("{")]
+    if len(lines) != 1 or any(line.startswith("{") for line in outs[1].splitlines()):
+        fail("[multihost] process 0, and it alone, must print one report line")
+    report = json.loads(lines[0])
+    cfg = report["config"]
+    rows = {r["label"]: r for r in report["rows"]}
+    row = rows.get(MULTIHOST_LABEL)
+    if row is None or row.get("bit_equal") is not True:
+        fail(f"[multihost] row (c) {MULTIHOST_LABEL!r} is missing or not bit-equal with the "
+             f"unsharded step: {report['rows']}")
+    launches = row["launches"]
+    lacking = [i for i, c in enumerate(launches) if min(c.values()) <= 0]
+    if len(launches) != MULTIHOST_PROCESSES or lacking:
+        fail(f"[multihost] processes {lacking} did not launch K1 and K2: {launches}")
+    if "H100" not in report["card"]:
+        fail(f"[multihost] the report's card line names no H100: {report['card']!r}")
+    out = {"phase_s": time.perf_counter() - t_phase, "coordinator": coord,
+           "rows": [{k: r[k] for k in ("label", "ranks", "transport", "ms_per_query", "rate",
+                                       "efficiency") if k in r} for r in report["rows"]],
+           "launches": launches, "card": report["card"]}
+    print("[multihost] " + "; ".join(
+        f"{r['label']}: {r['ms_per_query']:.3f} ms/query, {r['rate']:.1f} depth rows/s, "
+        f"efficiency {r['efficiency']:.3f}" + (f", bit-equal {r['bit_equal']}"
+                                               if "bit_equal" in r else "")
+        for r in report["rows"]) + f"; launches per process over the timed queries {launches}"
+        f" | ring {cfg['ring']}, L = {cfg['limbs']}, D = {cfg['depths']}, two processes on one "
+        f"card over {coord} | {smi_line}",
+        flush=True)
+    print(f"[multihost] phase {out['phase_s']:.2f} s (both processes' start and build "
+          "included)", flush=True)
     return out
 
 
@@ -1276,6 +1357,19 @@ def main() -> None:
     print(f"[kernel] K2 at L = 9: {ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), share "
           f"{b_ms / ms:.3f}", flush=True)
     del idx, pt
+    # [multihost]'s shapes (the scaling report at ring 16384, L = 8, t = 65537,
+    # H = 2, P = 8): K2 at D = 8 (each process's dp half) and D = 16 (its
+    # unsharded row); K1's relin shapes at the same depths are in the list below
+    qm = SchemeParams(ring_dim=N, plaintext_modulus=T16, num_limbs=8).q_primes
+    tbm = NTTPlan(N, qm).tensors(dev)
+    for Dm in (8, 16):
+        idx, pt = residues((2, 8, 2, 8, N), qm), residues((2, Dm, 8, 8, N), qm)
+        results[f"pie_ip_multihost_d{Dm}"] = compare(
+            f"K2 position sum, [multihost] (H,D,P,L,N)=(2,{Dm},8,8,{N})",
+            lambda: pie_kernels.indexed_inner_product(idx, pt, tbm["p_u32"], tbm["pinv_u32"]),
+            lambda: pie_kernels.indexed_inner_product_plain(idx, pt, tbm["p"], tbm["pinv"]),
+            plain_iters=2) + k2_bound(2, Dm, 8, 8, N)
+        del idx, pt
     q16 = ntt_primes(6, 31, 2 * N, avoid=(T16,))
     simple_chunk = SimpleFHEPIE.CHUNK_BYTES // (2 * 12 * 2 * 7 * N * 4 * 9)  # its _pie_chunk
     q7 = ntt_primes(7, 31, 2 * N, avoid=(T,))
@@ -1288,6 +1382,9 @@ def main() -> None:
         ("leveled relin at level 1, decompose digits", False, (12, 5), q16[:5]),
         ("SimpleFHE Galois key switch, iNTT of c1", True, (simple_chunk, 2, 12), q7),
         ("SimpleFHE Galois key switch, decompose digits", False, (simple_chunk, 2, 12, 7), q7),
+        *((f"[multihost] relin at D = {Dm}, iNTT of d2", True, (Dm,), qm) for Dm in (8, 16)),
+        *((f"[multihost] relin at D = {Dm}, decompose digits", False, (Dm, 8), qm)
+          for Dm in (8, 16)),
     ):
         plan = NTTPlan(N, ps)
         x = residues((*lead, len(ps), N), ps)
@@ -1555,6 +1652,9 @@ def main() -> None:
     parallel = parallel_phase(runs, smi_line)
     torch.cuda.empty_cache()
 
+    # ---- [multihost]: two processes over TCP, the scaling report's row (c) ---
+    multihost = multihost_phase(smi_line)
+
     # ---- the ElGamal protocols: host-only, no kernel launches -----------
     def kernel_counts():
         return {"ntt_fwd": ntt_cuda.launches["ntt"], "ntt_inv": ntt_cuda.launches["intt"],
@@ -1590,13 +1690,16 @@ def main() -> None:
         entry("ntt_fwd", f"{csrc}/ntt.cu", "nested_hashing_psi_tpu/ops/ntt_pallas.py:631",
               "ntt_q", launches["ntt_fwd"],
               parallel_launches=parallel["launches"]["ntt_fwd"],
+              multihost_launches=sum(c["ntt_fwd"] for c in multihost["launches"]),
               bench_wrapper_calls=bench_out["wrapper_calls"]["ntt_fwd"]),
         entry("ntt_inv", f"{csrc}/ntt.cu", "nested_hashing_psi_tpu/ops/ntt_pallas.py:645",
               "intt_q", launches["ntt_inv"],
               parallel_launches=parallel["launches"]["ntt_inv"],
+              multihost_launches=sum(c["ntt_inv"] for c in multihost["launches"]),
               bench_wrapper_calls=bench_out["wrapper_calls"]["ntt_inv"]),
         entry("pie_ip", f"{csrc}/pie_ip.cu", "nested_hashing_psi_tpu/ops/pie_kernels.py:48",
               "pie_ip", launches["pie_ip"], parallel_launches=parallel["launches"]["pie_ip"],
+              multihost_launches=sum(c["pie_ip"] for c in multihost["launches"]),
               bench_wrapper_calls=bench_out["wrapper_calls"]["pie_ip"],
               p58_max_abs_err=bench_out["bench_pie_online"]["2^24"]["k2_max_abs_err"],
               p58_ms=bench_out["bench_pie_online"]["2^24"]["k2_ms"],
@@ -1606,7 +1709,8 @@ def main() -> None:
               **dict(zip(
                   ("l9_max_abs_err", "l9_ms", "l9_plain_ms", "l9_bound_ms", "l9_bound_by"),
                   results["pie_ip_l9"])),
-              **{f"{key}_{f}": v for key in ("slice", "position_major", "acc")
+              **{f"{key}_{f}": v for key in ("slice", "position_major", "acc", "multihost_d8",
+                                             "multihost_d16")
                  for f, v in zip(("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by"),
                                  results[f"pie_ip_{key}"])},
               **{f"l{Ls}_sweep_ms": ms for Ls, ms in k2_sweep.items()},
@@ -1693,6 +1797,7 @@ def main() -> None:
     print(f"[goldens] times {json.dumps(golden_times)}", flush=True)
     print(f"[parallel] times {json.dumps({k: v for k, v in parallel.items() if k != 'launches'})}",
           flush=True)
+    print(f"[multihost] times {json.dumps(multihost)}", flush=True)
     print(f"[bench] phase {bench_out['phase_s']:.2f} s, wrapper calls "
           f"{bench_out['wrapper_calls']}",
           flush=True)

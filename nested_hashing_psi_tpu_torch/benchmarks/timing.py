@@ -35,6 +35,7 @@ import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 EVAL_DIR = os.path.join(ROOT, "eval_results_torch")
+TRACE_TRIES = 3  # traces traced_kernels takes on the card before it returns none
 
 
 def _on_card(device) -> bool:
@@ -129,15 +130,23 @@ def traced_kernels(fn, device, calls: int = 1,
                    log_dir: str | None = None) -> list[tuple[str, float]]:
     """(name, ms) of every device kernel that ``calls`` calls of fn() ran
     (after one warm-up), from a torch.profiler trace written to
-    ``log_dir/trace.json`` (else a temporary directory); none on the CPU."""
+    ``log_dir/trace.json`` (else a temporary directory); none on the CPU.
+    On the card a trace that holds no kernel is taken again, up to
+    TRACE_TRIES traces in all: on an H100 (torch 2.11) a trace now and
+    then records none, even the first of a fresh process; the caller
+    decides what an empty result means."""
     from nested_hashing_psi_tpu_torch.utils.profiling import device_trace
 
     fn()
     if _on_card(device):
         torch.cuda.synchronize(device)
-    with tempfile.TemporaryDirectory() as tmp:
-        d = log_dir or tmp
-        with device_trace(d):
-            for _ in range(calls):
-                fn()
-        return kernel_events(os.path.join(d, "trace.json"))
+    for _ in range(TRACE_TRIES if _on_card(device) else 1):
+        with tempfile.TemporaryDirectory() as tmp:
+            d = log_dir or tmp
+            with device_trace(d):
+                for _ in range(calls):
+                    fn()
+            kernels = kernel_events(os.path.join(d, "trace.json"))
+        if kernels:
+            break
+    return kernels

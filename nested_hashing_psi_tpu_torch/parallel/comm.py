@@ -12,9 +12,12 @@ the group's backend and the tensor's device, and nothing else:
   there and copies the result back to the rank's device (``STAGED``). The
   rank's compute stays on its device.
 
-``nccl`` on a CPU tensor raises. ``bytes_sent`` counts the bytes this rank
-sends to other ranks (a pair (i, i) of ``ppermute`` is a local copy and
-sends nothing), as ``ops.pie_kernels.launches`` counts K2's launches.
+On a group of one rank ``all_to_all`` and ``all_gather`` return their input
+as it is, with no exchange and no copy to host memory, as a collective over
+a mesh axis of size 1 does nothing in JAX. ``nccl`` on a CPU tensor raises
+all the same. ``bytes_sent`` counts the bytes this rank sends to other
+ranks (a pair (i, i) of ``ppermute`` is a local copy and sends nothing),
+as ``ops.pie_kernels.launches`` counts K2's launches.
 """
 
 from __future__ import annotations
@@ -108,6 +111,9 @@ def all_to_all(x: torch.Tensor, split_axis: int, concat_axis: int, group) -> tor
     block i of ``x`` along split_axis goes to rank i; the blocks received
     from ranks 0..D-1 are concatenated along concat_axis in that order."""
     D = axis_size(group)
+    if D == 1:
+        transport(group, x.device)  # raises where the exchange would
+        return x
     split_axis %= x.dim()
     concat_axis %= x.dim()
     if x.shape[split_axis] % D:
@@ -122,6 +128,9 @@ def all_to_all(x: torch.Tensor, split_axis: int, concat_axis: int, group) -> tor
 def all_gather(x: torch.Tensor, axis: int, group) -> torch.Tensor:
     """The blocks of all ranks of ``group`` concatenated along ``axis``."""
     D = axis_size(group)
+    if D == 1:
+        transport(group, x.device)  # raises where the exchange would
+        return x
     wire = _to_wire(x, group)
     parts = [torch.empty_like(wire) for _ in range(D)]
     dist.all_gather(parts, wire, group=group)

@@ -233,3 +233,17 @@ def test_unported_paths_raise(setup):
         np.testing.assert_array_equal(convert.to_numpy(got.data), np.asarray(want.data))
     flat = t_pie.BatchedFHEPIE(tctx, setup["hct"], tpie.rlk, mask_seed=99, mul_limbs=0)
     assert flat.mul_limbs is None and torch.equal(flat.table_pt, tpie.table_pt)
+
+
+def test_fhe_pie_rejects_combined_tables():
+    """The batched FHE PIE refuses combined tables, as the reference's
+    BatchedFHEHIPPIE.cpp:18-21 (tests/test_elgamal.py's check, on the port)."""
+    hct = HierarchicalCuckooHashTable(
+        TabulationHashing(11, 4), each_simple_table_size=8, each_cuckoo_table_size=12,
+        n_simple_hash_functions=2, n_cuckoo_hash_functions=2, max_items_per_position=3,
+        cuckoo_multi_table=False, seed=1)
+    ctx = t_bfv.make_context(SchemeParams(ring_dim=32, plaintext_modulus=65537, num_limbs=3),
+                             seed=2, device="cpu")
+    sk, _ = ctx.keygen()
+    with pytest.raises(ValueError, match="combined"):
+        t_pie.BatchedFHEPIE(ctx, hct, ctx.relin_keygen(sk))

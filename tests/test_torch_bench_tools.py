@@ -25,6 +25,7 @@ can run here.
 - Every tool that computes defaults to ``cuda`` and raises without a card.
 """
 
+import contextlib
 import os
 import subprocess
 import sys
@@ -206,6 +207,33 @@ def test_profile_online_trace_writes_its_directory(tmp_path):
     built = small_pie.bench_row(device="cpu", **SMALL_ROW)
     top = profile_online.capture_trace(built, CPU, str(tmp_path / "trace_online"), steps=1)
     assert top == [] and (tmp_path / "trace_online" / "trace.json").is_file()
+
+
+@pytest.mark.parametrize("found,traces", [(2, 3), (None, 3), (0, 1)],
+                         ids=["third_trace", "none_in_three", "first_trace"])
+def test_traced_kernels_takes_an_empty_trace_again_on_the_card(monkeypatch, found, traces):
+    """On the card a trace that recorded no kernel is taken again, up to
+    TRACE_TRIES in all; an empty result is returned to the caller, which
+    raises on it (profile_online)."""
+    from nested_hashing_psi_tpu_torch.utils import profiling
+
+    calls, read = [], []
+
+    @contextlib.contextmanager
+    def no_trace(d):
+        yield
+
+    def events(path):
+        read.append(path)
+        return [("k", 1.0)] if len(read) - 1 == found else []
+
+    monkeypatch.setattr(timing, "_on_card", lambda device: True)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda device=None: None)
+    monkeypatch.setattr(profiling, "device_trace", no_trace)
+    monkeypatch.setattr(timing, "kernel_events", events)
+    got = timing.traced_kernels(lambda: calls.append(1), "cuda", calls=2)
+    assert got == ([] if found is None else [("k", 1.0)])
+    assert timing.TRACE_TRIES == 3 and len(read) == traces and len(calls) == 1 + 2 * traces
 
 
 def test_bench_pie_online_small_config_runs():

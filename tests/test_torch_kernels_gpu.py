@@ -888,3 +888,135 @@ def test_reference_golden_at_ring_16384(cuda, golden):
     launched = out["launches"]
     assert launched["ntt_fwd"] > 0 and launched["ntt_inv"] > 0
     assert (launched["pie_ip"] > 0) == (golden == "golden_batched_fhe_pie")
+
+
+# ---- the JAX package's ring-16384 tests (marked slow there), on the card ---
+
+
+def _psi_ht(simple: bool, **over):
+    """tests/test_protocol_e2e.py's (BatchedFHE) or tests/test_simple_fhe.py's
+    (SimpleFHE) parameters, with ``over`` applied to the PSI parameters."""
+    from nested_hashing_psi_tpu_torch.config import HashTableParams, PSIParams
+
+    if simple:
+        psi = dict(server_set_size=200, client_set_size=8, intersection_set_size=4,
+                   bit_size=16, fhe=True, batched=False, ring_dim=64, num_limbs=8)
+        ht = dict(each_simple_table_size=8, each_cuckoo_table_size=10,
+                  n_simple_hash_functions=2, n_cuckoo_hash_functions=2, max_items_per_position=6)
+    else:
+        psi = dict(server_set_size=300, client_set_size=12, intersection_set_size=5,
+                   hash_seed=987654321, item_seed=123456789, bit_size=16, fhe=True, batched=True,
+                   ring_dim=128, num_limbs=8)
+        ht = dict(each_simple_table_size=32, each_cuckoo_table_size=12,
+                  n_simple_hash_functions=2, n_cuckoo_hash_functions=2, max_items_per_position=4)
+    return PSIParams(**{**psi, **over}), HashTableParams(**ht)
+
+
+@pytest.mark.parametrize("simple,bit_size,bgv", [
+    (False, 40, False), (False, 48, False), (True, 16, True), (True, 40, False),
+], ids=["batched_40bit", "batched_48bit", "simple_bgv_default_limbs", "simple_40bit"])
+def test_protocol_at_ring_16384_default_limbs(cuda, monkeypatch, simple, bit_size, bgv):
+    """tests/test_protocol_e2e.py::test_batched_fhe_e2e_big_t_ring16384 and
+    tests/test_simple_fhe.py's two ring-16384 tests on the card: the default
+    limb budget at the production ring (the 40/48-bit moduli through the
+    native __int128 decode; BGV with the EvalSum ladder's 14 key switches)
+    verifies with 20 bits of noise to spare. A BFV client decrypts on the
+    device, which reads no noise: what it decrypts is decrypted again on the
+    host for the noise."""
+    from nested_hashing_psi_tpu_torch.fhe.bgv import Ciphertext
+    from nested_hashing_psi_tpu_torch.fhe.device_decrypt import DeviceDecryptor
+    from nested_hashing_psi_tpu_torch.protocol.runner import run_in_process
+
+    seen = []
+    zero_mask = DeviceDecryptor.zero_mask
+
+    def spy(self, data, *args, **kwargs):
+        seen.append(data)
+        return zero_mask(self, data, *args, **kwargs)
+
+    monkeypatch.setattr(DeviceDecryptor, "zero_mask", spy)
+    psi, ht = _psi_ht(simple, bit_size=bit_size, bgv=bgv, ring_dim=16384, num_limbs=0)
+    client, server, ok = run_in_process(psi, ht, device="cuda")
+    assert ok and len(client.intersection_calculated) == psi.intersection_set_size
+    noise = client.noise_bits
+    if noise is None:
+        assert seen and not bgv
+        noise = max(client.ctx.decrypt(Ciphertext(d, "bfv"), client.sk)[1] for d in seen)
+    assert noise < server.ctx.params.num_limbs * 31 - 20
+
+
+def test_sharded_steps_at_ring_16384(cuda):
+    """tests/test_parallel.py::test_sharded_pie_ring16384_shapes on the card:
+    the dp x tp step's relin all-gather over tp (2 x 2) and the ring-sharded
+    step's ring exchange (4 ranks, 4096-column blocks) at ring 16384, four
+    gloo ranks sharing the card, bit-equal to the unsharded step."""
+    from nested_hashing_psi_tpu_torch import convert
+    from nested_hashing_psi_tpu_torch.benchmarks.small_pie import build_small_pie
+    from nested_hashing_psi_tpu_torch.ops import cuda_lib
+    from nested_hashing_psi_tpu_torch.parallel.launch import run_ranks
+    from nested_hashing_psi_tpu_torch.pie.batched_fhe import batched_pie_forward
+    from torch_parallel_cases import run_cases, summarize
+
+    built = build_small_pie(ring=16384, limbs=8, H=2, P=6, D=8, simple=64, device=cuda)
+    ctx, pie, rlk = built.ctx, built.pie, built.pie.rlk
+    data = dict(idx=built.idx_ct.data, minus=built.minus_ct.data, table=pie.table_pt,
+                mask=pie.mask_pt, rlk_b=rlk.b_mont, rlk_a=rlk.a_mont)
+    step_inputs = (data[k] for k in ("idx", "minus", "table", "mask"))
+    want = convert.to_numpy(batched_pie_forward(ctx, rlk, *step_inputs).data)
+    inputs = {k: convert.to_numpy(v) for k, v in data.items()}
+    cases = [dict(name="dp_tp", kind="dp_tp", params=ctx.params, inputs=inputs, mesh=(2, 2)),
+             dict(name="sp", kind="sp", params=ctx.params, inputs=inputs)]
+    cuda_lib.get_lib()  # the ranks load the library this process built
+    out = summarize(run_ranks(run_cases, 4, "gloo", (cases, "cuda"), timeout=600))
+    for s in out:
+        np.testing.assert_array_equal(s["results"][0], want, err_msg=s["name"])
+
+
+def test_sharded_step_production_geometry_memory_bounded(cuda):
+    """tests/test_parallel.py::test_sharded_pie_production_geometry_memory_bounded
+    on the card: the 2^24 geometry (D = P = 48, L = 9, ring 16384) through the
+    dp x tp step (NCCL, world 1, L = 9 unsplit over tp) with pos_chunk = 4,
+    bit-equal to the unsharded step (K2's sums mod p are exact, so the
+    chunks change no bit), and the device's peak
+    below the naive (H, D, P, 2, L, N) int64 product the position sum never
+    materialises."""
+    import torch.distributed as dist
+
+    from nested_hashing_psi_tpu_torch import convert
+    from nested_hashing_psi_tpu_torch.fhe.bgv import BGVContext
+    from nested_hashing_psi_tpu_torch.fhe.params import SchemeParams
+    from nested_hashing_psi_tpu_torch.parallel.multihost import init_distributed
+    from nested_hashing_psi_tpu_torch.pie.batched_fhe import batched_pie_forward
+    from torch_parallel_cases import run_cases, summarize
+
+    H, D, P, L, N = 2, 48, 48, 9, 16384
+    params = SchemeParams(ring_dim=N, plaintext_modulus=65537, num_limbs=L)
+    ctx = BGVContext(params, seed=7, device=cuda)
+    sk, _ = ctx.keygen()
+    rlk = ctx.relin_keygen(sk)
+    ps = ctx.q_primes
+    gen = torch.Generator(device=cuda).manual_seed(1)
+
+    def r(shape):
+        return torch.randint(0, int(min(ps)), shape, generator=gen, device=cuda,
+                             dtype=torch.int32)
+
+    data = dict(idx=r((H, P, 2, L, N)), minus=r((2, L, N)), table=r((H, D, P, L, N)),
+                mask=r((D, L, N)))
+    want = convert.to_numpy(batched_pie_forward(ctx, rlk, *data.values()).data)
+    inputs = {k: convert.to_numpy(v) for k, v in data.items()}
+    inputs.update(rlk_b=convert.to_numpy(rlk.b_mont), rlk_a=convert.to_numpy(rlk.a_mont))
+    del data
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(cuda)
+    case = dict(name="dp_tp", kind="dp_tp", params=params, inputs=inputs, mesh=(1, 1),
+                pos_chunk=4)
+    init_distributed(None, 1, 0, "nccl")
+    try:
+        (s,) = summarize([run_cases(0, 1, [case], "cuda")])
+    finally:
+        dist.destroy_process_group()
+    np.testing.assert_array_equal(s["results"][0], want)
+    naive = H * D * P * 2 * L * N * 8
+    assert torch.cuda.max_memory_allocated(cuda) < naive, (torch.cuda.max_memory_allocated(cuda),
+                                                           naive)

@@ -30,7 +30,14 @@ from nested_hashing_psi_tpu.protocol import batched_fhe as j_proto
 from nested_hashing_psi_tpu_torch import convert
 from nested_hashing_psi_tpu_torch.config import HashTableParams, PSIParams
 from nested_hashing_psi_tpu_torch.fhe.bgv import BGVContext, Ciphertext
-from nested_hashing_psi_tpu_torch.fhe.params import SchemeParams, leveled_default
+from nested_hashing_psi_tpu_torch.fhe.params import (
+    LIMB_BITS,
+    MAX_LOG_Q_128,
+    SchemeParams,
+    default_num_limbs,
+    leveled_default,
+    plaintext_modulus_for_bit_size,
+)
 from nested_hashing_psi_tpu_torch.pie import batched_fhe as t_pie
 from nested_hashing_psi_tpu_torch.protocol import batched_fhe as t_proto
 
@@ -194,3 +201,36 @@ def test_48bit_3hf_bgv_raises_the_jax_security_error():
     with pytest.raises(ValueError) as got:
         t_proto._scheme_params(PSIParams(**kw), HashTableParams(**ht))
     assert str(got.value) == str(want.value) and "exceeds the 128-bit" in str(got.value)
+
+
+def test_leveled_default_predicate():
+    """Leveled for BGV at a device-sized t with a cross-hash product only
+    (tests/test_leveled_pie.py's predicate, on the port)."""
+    assert leveled_default("bgv", 65537, 2) is True
+    assert leveled_default("bfv", 65537, 2) is False  # HPS: additive noise
+    assert leveled_default("bgv", (1 << 32) + 1, 2) is False  # t too big
+    assert leveled_default("bgv", 65537, 1) is False  # no ct x ct product
+
+
+def test_leveled_limb_budget_smaller_at_depth():
+    assert default_num_limbs(17, 2, 500, "bgv", leveled=True) < default_num_limbs(17, 2, 500,
+                                                                                  "bgv")
+
+
+def test_48bit_3hf_fits_security_cap():
+    """48-bit items, three cuckoo hash functions: the HPS BFV budget fits
+    under HEStd_128 at ring 16384 (the flat BGV one does not, above)."""
+    t = plaintext_modulus_for_bit_size(48)
+    limbs = default_num_limbs(t.bit_length(), 2, 5000, "bfv")
+    assert limbs * LIMB_BITS <= MAX_LOG_Q_128[16384]
+    SchemeParams(16384, t, num_limbs=limbs, scheme="bfv").validate_security()
+
+
+def test_mask_plaintext_limb_slice_is_child_encoding():
+    """Plaintext RNS limbs are independent: the first L' limbs of a
+    full-basis Montgomery plaintext are the child context's encoding."""
+    ctx = BGVContext(SchemeParams(64, 65537, num_limbs=5), seed=2, device="cpu")
+    child = ctx.drop_limb_context()
+    vals = np.arange(1, 33, dtype=np.int64).astype(object)
+    full = ctx.make_plaintext_mont(vals).numpy()
+    np.testing.assert_array_equal(full[: child.L], child.make_plaintext_mont(vals).numpy())

@@ -45,7 +45,7 @@ from nested_hashing_psi_tpu_torch.hashing import (
     TabulationHashing,
 )
 from nested_hashing_psi_tpu_torch.hashing.tabulation import items_from_ints
-from nested_hashing_psi_tpu_torch.parallel import mesh as tmesh
+from nested_hashing_psi_tpu_torch.parallel import comm, mesh as tmesh
 from nested_hashing_psi_tpu_torch.parallel.launch import run_ranks
 from nested_hashing_psi_tpu_torch.parallel.multihost import (
     Mesh,
@@ -269,6 +269,23 @@ def test_backend_is_the_callers_and_nccl_wants_its_own_gpu(monkeypatch):
     store = dist.HashStore()
     store.set("nhpsi/nccl_device/0", "host/GPU-B")
     _one_rank_per_device(store, 1, 2, "host/GPU-A")
+
+
+def test_collectives_on_one_rank_return_their_input():
+    """On a group of one rank all_gather and all_to_all return the tensor
+    they were given and send nothing, as a collective over a mesh axis of
+    size 1 does nothing in JAX: no copy to host memory, on any transport."""
+    init_distributed(None, 1, 0, "gloo")
+    try:
+        group = dist.group.WORLD
+        x = torch.arange(24, dtype=torch.int32).reshape(2, 3, 4)
+        comm.reset_bytes()
+        assert comm.all_gather(x, 1, group) is x
+        assert comm.all_to_all(x, 2, 1, group) is x
+        assert comm.bytes_sent == 0
+        assert torch.equal(x, torch.arange(24, dtype=torch.int32).reshape(2, 3, 4))
+    finally:
+        dist.destroy_process_group()
 
 
 def test_nccl_rank_takes_its_card_on_its_host(monkeypatch):

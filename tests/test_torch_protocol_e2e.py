@@ -13,6 +13,7 @@ import subprocess
 import sys
 import threading
 
+import numpy as np
 import pytest
 import torch
 
@@ -78,6 +79,68 @@ def test_port_run_in_process_one_cuckoo_hash():
     )
     assert ok and len(client.intersection_calculated) == 5
     assert server.pie.mul_limbs is None
+
+
+def test_port_run_in_process_full_client_in_server():
+    client, _, ok = run_in_process(small_params(client_set_size=6, intersection_set_size=6),
+                                   small_ht(), device="cpu")
+    assert ok and len(client.intersection_calculated) == 6
+
+
+def test_port_run_in_process_three_cuckoo_hfs():
+    client, _, ok = run_in_process(small_params(num_limbs=12),
+                                   small_ht(n_cuckoo_hash_functions=3), device="cpu")
+    assert ok and len(client.intersection_calculated) == 5
+
+
+def test_server_rejects_invalid_chunk_count():
+    """The port's server validates the chunk count it reads off the wire: a
+    non-divisor of the inner position count fails the session with a clear
+    error (tests/test_protocol_e2e.py's check, on the port)."""
+    from nested_hashing_psi_tpu_torch.protocol.channel import LoopbackChannel as TLoopback
+
+    peer, ours = TLoopback.pair()
+    peer.write_tensor(np.zeros((2, 2, 4), np.uint32))  # minus ciphertext
+    peer.write_tensor(np.array([7], np.uint64))  # 7 does not divide P = 12
+    srv = t_proto.BatchedFHEPSIServer.__new__(t_proto.BatchedFHEPSIServer)
+    srv.channel = ours
+    srv.ht = small_ht()
+    with pytest.raises(ValueError, match="chunk count 7"):
+        srv.run_online_phase()
+
+
+def simple_params(**over):
+    """tests/test_simple_fhe.py's SimpleFHE geometry."""
+    return small_params(**{**dict(batched=False, ring_dim=64, server_set_size=200,
+                                  client_set_size=8, intersection_set_size=4), **over})
+
+
+def simple_ht(**over):
+    return small_ht(**{**dict(each_simple_table_size=16, each_cuckoo_table_size=10,
+                              max_items_per_position=6), **over})
+
+
+def test_simple_fhe_e2e_empty():
+    client, _, ok = run_in_process(simple_params(intersection_set_size=0, client_set_size=5),
+                                   simple_ht(), device="cpu")
+    assert ok and len(client.intersection_calculated) == 0
+
+
+def test_simple_fhe_bin_size_equals_table_size():
+    """The reference's FHEHIPPIE geometry (binSize == tableSize)."""
+    _, _, ok = run_in_process(simple_params(),
+                              simple_ht(each_cuckoo_table_size=8, max_items_per_position=8),
+                              device="cpu")
+    assert ok
+
+
+def test_simple_fhe_bgv_default_limbs():
+    """--bgv with the default limb budget: it models the EvalSum ladder's
+    key-switch noise for BGV too, with 20 bits to spare."""
+    client, server, ok = run_in_process(simple_params(bgv=True, num_limbs=0), simple_ht(),
+                                        device="cpu")
+    assert ok and len(client.intersection_calculated) == 4
+    assert client.noise_bits < server.ctx.params.num_limbs * 31 - 20
 
 
 def _mixed(client_cls, server_cls, psi, ht, client_kw, server_kw):
