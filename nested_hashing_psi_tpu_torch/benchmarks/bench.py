@@ -53,7 +53,6 @@ from nested_hashing_psi_tpu_torch.ops import ntt_cuda
 from nested_hashing_psi_tpu_torch.ops.ntt import NTTPlan, ntt
 from nested_hashing_psi_tpu_torch.ops.primes import ntt_primes
 from nested_hashing_psi_tpu_torch.protocol.batched_fhe import resolve_device
-from nested_hashing_psi_tpu_torch.utils.profiling import batched_pie_op_counts
 
 N = 1 << 14
 LIMBS = 6
@@ -132,8 +131,6 @@ def pie_online(built: small_pie.SmallPIE, device: torch.device, queries: int = 3
     check_query0(masks[0], slots)
     best = min(wall_ms(pipeline, device, 1, warm=0) for _ in range(3)) / queries
 
-    counts = batched_pie_op_counts(pie.H, pie.D, pie.P, ctx.L, ctx.n)
-    modmuls = counts["ct_pt_modmuls"] + counts["approx_ntt_modmuls"]
     return {
         "config": f"Parameters1.txt row 12 (server 2^20, client 2048) geometry: H={pie.H} "
                   f"D={pie.D} P={pie.P}, {pie.batch_slots} slots, ring {ctx.n}",
@@ -143,7 +140,6 @@ def pie_online(built: small_pie.SmallPIE, device: torch.device, queries: int = 3
         "ms_per_query_single": single_ms, "ms_per_query_steady": steady_ms,
         "ms_per_query_device": device_ms,
         "depth_rows_per_sec": pie.D / (device_ms / 1e3),
-        "modmul_gops": modmuls / (device_ms / 1e3) / 1e9,
         "first_call_s": first_call_s,
         "query0_mask_equals_host_decrypt": True,
     }

@@ -51,7 +51,6 @@ from nested_hashing_psi_tpu_torch.protocol.runner import (
     run_parties,
 )
 from nested_hashing_psi_tpu_torch.utils.checkpoint import load_batched_pie, save_batched_pie
-from nested_hashing_psi_tpu_torch.utils.profiling import batched_pie_op_counts
 
 PERF_DIR = "eval_results_torch"
 
@@ -189,8 +188,6 @@ def main(argv=None) -> int:
               f"{client.ctx.params.q.bit_length()}")
     print(f"online wire: {m['Online'].bytes_out / 1e6:.1f} MB up, "
           f"{m['Online'].bytes_in / 1e6:.1f} MB down")
-    inner = ht.each_cuckoo_table_size
-    print(f"op counts: {batched_pie_op_counts(2, inner, inner, client.ctx.L, client.ctx.n)}")
     if not ok:
         return 1
     if not args.checkpoint:

@@ -4,7 +4,9 @@ Residues are uint32 in the JAX package and on the wire, int32 (same bits,
 values in [0, p) < 2**31) in the port. These helpers move keys (secret,
 relin and Galois), ciphertexts (with their form and scale) and both PIEs'
 tables across in both directions, so both packages can compute on the same
-keys and tables.
+keys and tables. ``send`` and ``receive`` are the one place where a tensor
+becomes a wire frame and a frame a tensor, each inside its span
+(``wire.pack``, ``wire.unpack``).
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ import numpy as np
 import torch
 
 from nested_hashing_psi_tpu_torch.fhe.bgv import Ciphertext, RelinKey, SecretKey
+from nested_hashing_psi_tpu_torch.utils.profiling import TRACER
 
 
 def from_numpy(a, device) -> torch.Tensor:
@@ -38,6 +41,26 @@ def to_device_async(a, device) -> torch.Tensor:
 def to_numpy(t: torch.Tensor) -> np.ndarray:
     """int32 residue tensor -> uint32 numpy array (the wire dtype)."""
     return np.ascontiguousarray(t.detach().cpu().numpy()).view(np.uint32)
+
+
+def send(channel, x) -> None:
+    """One frame on ``channel``: a residue tensor (any device) as uint32, or
+    a host array (a parameter or meta vector) as it is."""
+    with TRACER.span("wire.pack", nbytes=x.nbytes):
+        channel.write_tensor(to_numpy(x) if isinstance(x, torch.Tensor) else x)
+
+
+def receive(channel, device=None, non_blocking: bool = False):
+    """The next frame of ``channel``: an int32 tensor on ``device``
+    (``from_numpy``; with ``non_blocking``, ``to_device_async``), or with
+    no device the host array as it came."""
+    with TRACER.span("wire.unpack") as span:
+        a = channel.read_tensor()
+        if span is not None:
+            span.nbytes = a.nbytes
+        if device is None:
+            return a
+        return to_device_async(a, device) if non_blocking else from_numpy(a, device)
 
 
 def secret_key_from_numpy(s_mont, s_ntt, device) -> SecretKey:

@@ -41,6 +41,7 @@ from nested_hashing_psi_tpu_torch.ops.modmath import (
 from nested_hashing_psi_tpu_torch.ops.ntt import NTTPlan
 from nested_hashing_psi_tpu_torch.ops.ntt_cuda import intt, ntt
 from nested_hashing_psi_tpu_torch.ops.primes import centered, crt_reconstruct
+from nested_hashing_psi_tpu_torch.utils.profiling import TRACER
 
 
 def tensor_product(a, b, p, pinv, r2):
@@ -313,21 +314,27 @@ class BGVContext:
     def decrypt(self, ct: Ciphertext, sk: SecretKey, length: int | None = None):
         """Full decrypt to slot values in [0, t) on the host. Returns
         (slots, noise_bits). Ciphertexts on a smaller basis are decrypted in
-        the matching child context with the shrunk key."""
+        the matching child context with the shrunk key. Spans
+        ``decrypt.phase`` (on the device), ``decrypt.download`` and
+        ``decrypt.crt`` (the host CRT and decode)."""
         n_limbs = ct.data.shape[-2]
         if n_limbs < self.L:
             return self.context_for_limbs(n_limbs).decrypt(
                 ct, self.shrink_key_to(sk, n_limbs), length
             )
-        phase = self.decrypt_phase(ct, sk).cpu().numpy().astype(np.uint64)
-        if ct.form == "bgv":
-            coeffs, noise_bits = self._phase_to_mt(phase)
-        else:
-            coeffs, noise_bits = self._phase_to_mt_bfv(phase)
-        if ct.scale != 1:
-            inv = pow(ct.scale, -1, self.t)
-            coeffs = (coeffs.astype(object) * inv) % self.t
-        return self.encoder.decode(coeffs, length), noise_bits
+        with TRACER.span("decrypt.phase", device=self.device):
+            phase = self.decrypt_phase(ct, sk)
+        with TRACER.span("decrypt.download"):
+            phase = phase.cpu().numpy().astype(np.uint64)
+        with TRACER.span("decrypt.crt"):
+            if ct.form == "bgv":
+                coeffs, noise_bits = self._phase_to_mt(phase)
+            else:
+                coeffs, noise_bits = self._phase_to_mt_bfv(phase)
+            if ct.scale != 1:
+                inv = pow(ct.scale, -1, self.t)
+                coeffs = (coeffs.astype(object) * inv) % self.t
+            return self.encoder.decode(coeffs, length), noise_bits
 
     def _phase_to_mt_bfv(self, phase: np.ndarray):
         raise NotImplementedError("BFV-form decrypt requires BFVContext")

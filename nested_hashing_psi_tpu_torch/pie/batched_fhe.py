@@ -19,6 +19,10 @@ the result shipped on ``ship_limbs``), the flat product on the full basis
 multiplication, the result shipped on L - (H-1) limbs). The streamed upload
 (``run_streamed``) and the host-resident table (``host_table=True``,
 ``_run_host_table``) run every pipeline.
+
+Spans on ``utils.profiling.TRACER``, each with the device's time:
+``pie.position_sum`` (every K2 call), ``pie.combine`` and inside it
+``scheme.mul_relin`` (every cross-hash multiply and relinearisation).
 """
 
 from __future__ import annotations
@@ -35,6 +39,7 @@ from nested_hashing_psi_tpu_torch.fhe.bgv import BGVContext, Ciphertext, RelinKe
 from nested_hashing_psi_tpu_torch.fhe.params import bfv_mul_limbs, bfv_ship_limbs
 from nested_hashing_psi_tpu_torch.ops.modmath import add_mod, mont_mul
 from nested_hashing_psi_tpu_torch.ops.pie_kernels import indexed_inner_product
+from nested_hashing_psi_tpu_torch.utils.profiling import TRACER
 
 
 def _zero_slots(result_slots: np.ndarray) -> np.ndarray:
@@ -69,7 +74,8 @@ def position_sum(ctx: BGVContext, idx_data, table_pt, p0: int | None = None,
     with p0, over table positions [p0, p0 + idx_data.shape[1]), read in
     place (table_pt is any (H, D, P, L, N) view with a contiguous n axis);
     with acc, added to the running sum acc in place (K2 does the add)."""
-    return indexed_inner_product(idx_data, table_pt, ctx.p_u32, ctx.pinv_u32, p0, acc)
+    with TRACER.span("pie.position_sum", device=ctx.device):
+        return indexed_inner_product(idx_data, table_pt, ctx.p_u32, ctx.pinv_u32, p0, acc)
 
 
 def combine_ip(
@@ -86,55 +92,59 @@ def combine_ip(
     being folded into hash 0's table), then multiply across hash functions:
     on the rescaled BFV basis (mul_limbs < L; mul_limbs = 0 disables it),
     flat on the full basis, or down the leveled BGV chain."""
-    H = ip.shape[0]
-    minus_masked = mont_mul(
-        minus_data[None], mask_pt[:, None], ctx.p, ctx.pinv
-    )  # (D, 2, L, N)
-    ip0 = add_mod(ip[0], minus_masked, ctx.p)
-    rest = [add_mod(ip[h], minus_data[None], ctx.p) for h in range(1, H)]
-    if mul_limbs and mul_limbs < ctx.L and H > 1:
-        assert ctx.default_form == "bfv", "mul_limbs is the BFV rescaled path"
-        acc = Ciphertext(ip0, "bfv", 1)
-        cur = ctx.L
+    with TRACER.span("pie.combine", device=ctx.device):
+        H = ip.shape[0]
+        minus_masked = mont_mul(
+            minus_data[None], mask_pt[:, None], ctx.p, ctx.pinv
+        )  # (D, 2, L, N)
+        ip0 = add_mod(ip[0], minus_masked, ctx.p)
+        rest = [add_mod(ip[h], minus_data[None], ctx.p) for h in range(1, H)]
+        if mul_limbs and mul_limbs < ctx.L and H > 1:
+            assert ctx.default_form == "bfv", "mul_limbs is the BFV rescaled path"
+            acc = Ciphertext(ip0, "bfv", 1)
+            cur = ctx.L
+            for h in range(1, H):
+                with TRACER.span("scheme.mul_relin", device=ctx.device):
+                    acc = ctx.hps_mul_relin_rescaled(
+                        acc,
+                        Ciphertext(rest[h - 1], "bfv", 1),
+                        rlk,
+                        mul_limbs,
+                        ship_limbs=ship_limbs if h == H - 1 else None,
+                        a_limbs=cur,
+                    )
+                cur = mul_limbs
+            return acc
+        # intermediate ciphertexts carry the context's native form (bgv/bfv)
+        form = ctx.default_form
+        acc = Ciphertext(ip0, form, 1)
+        if not leveled or H == 1:
+            for h in range(1, H):
+                with TRACER.span("scheme.mul_relin", device=ctx.device):
+                    acc = ctx.ct_ct_mul_relin(acc, Ciphertext(rest[h - 1], form, 1), rlk)
+            return acc
+
+        assert form == "bgv", "leveled path is BGV-only"
+        # chain[lvl] works over L - lvl limbs; multiplication h runs at level h
+        # (both operands switched down first), the product is switched once
+        # more except after the last multiplication
+        chain = [ctx]
+        for _ in range(H - 1):
+            chain.append(chain[-1].drop_limb_context())
+
+        def switch_to(ct, dst_lvl: int) -> Ciphertext:
+            for lv in range(dst_lvl):
+                ct = chain[lv].mod_switch(ct)
+            return ct
+
+        acc = switch_to(acc, 1)
         for h in range(1, H):
-            acc = ctx.hps_mul_relin_rescaled(
-                acc,
-                Ciphertext(rest[h - 1], "bfv", 1),
-                rlk,
-                mul_limbs,
-                ship_limbs=ship_limbs if h == H - 1 else None,
-                a_limbs=cur,
-            )
-            cur = mul_limbs
+            op = switch_to(Ciphertext(rest[h - 1], "bgv", 1), h)
+            with TRACER.span("scheme.mul_relin", device=ctx.device):
+                acc = chain[h].ct_ct_mul_relin(acc, op, ctx.shrink_relin_key(rlk, chain[h].L))
+            if h < H - 1:
+                acc = chain[h].mod_switch(acc)
         return acc
-    # intermediate ciphertexts carry the context's native form (bgv/bfv)
-    form = ctx.default_form
-    acc = Ciphertext(ip0, form, 1)
-    if not leveled or H == 1:
-        for h in range(1, H):
-            acc = ctx.ct_ct_mul_relin(acc, Ciphertext(rest[h - 1], form, 1), rlk)
-        return acc
-
-    assert form == "bgv", "leveled path is BGV-only"
-    # chain[lvl] works over L - lvl limbs; multiplication h runs at level h
-    # (both operands switched down first), the product is switched once
-    # more except after the last multiplication
-    chain = [ctx]
-    for _ in range(H - 1):
-        chain.append(chain[-1].drop_limb_context())
-
-    def switch_to(ct, dst_lvl: int) -> Ciphertext:
-        for lv in range(dst_lvl):
-            ct = chain[lv].mod_switch(ct)
-        return ct
-
-    acc = switch_to(acc, 1)
-    for h in range(1, H):
-        op = switch_to(Ciphertext(rest[h - 1], "bgv", 1), h)
-        acc = chain[h].ct_ct_mul_relin(acc, op, ctx.shrink_relin_key(rlk, chain[h].L))
-        if h < H - 1:
-            acc = chain[h].mod_switch(acc)
-    return acc
 
 
 class BatchedFHEPIE(nn.Module):

@@ -13,6 +13,13 @@ mod-t arithmetic (16-bit items) and the flat product otherwise.
 ``--streamChunks`` sends the index ciphertexts in chunks that the server
 position-sums as they arrive, and a packed table above 5 GB stays in host
 memory (``BatchedFHEPIE(host_table=True)``).
+
+Each party's online phase is a span on ``utils.profiling.TRACER``
+(``client.exchange``, ``server.exchange``, numbered by the party's own
+count of online phases), holding its frames (``wire.pack``,
+``wire.unpack``, ``convert.send``/``receive``), the server's step
+(``server.step``, the lines ``online_computation_us`` times) and the
+client's decrypt (``client.decrypt``) and extraction (``client.extract``).
 """
 
 from __future__ import annotations
@@ -30,15 +37,9 @@ from nested_hashing_psi_tpu_torch.hashing import (
 )
 from nested_hashing_psi_tpu_torch.protocol.base import PSIClientBase, PSIServerBase
 from nested_hashing_psi_tpu_torch.protocol.channel import Channel
-from nested_hashing_psi_tpu_torch.convert import (
-    ciphertext_from_numpy,
-    from_numpy,
-    relin_key_from_numpy,
-    to_device_async,
-    to_numpy,
-)
+from nested_hashing_psi_tpu_torch.convert import receive, send
 from nested_hashing_psi_tpu_torch.fhe.bfv import make_context
-from nested_hashing_psi_tpu_torch.fhe.bgv import Ciphertext
+from nested_hashing_psi_tpu_torch.fhe.bgv import Ciphertext, RelinKey
 from nested_hashing_psi_tpu_torch.fhe.device_decrypt import DeviceDecryptor
 from nested_hashing_psi_tpu_torch.fhe.params import (
     SchemeParams,
@@ -52,6 +53,7 @@ from nested_hashing_psi_tpu_torch.pie.batched_fhe import (
     BatchedFHEClientOps,
     BatchedFHEPIE,
 )
+from nested_hashing_psi_tpu_torch.utils.profiling import TRACER
 
 PROTOCOL_NAME = "BatchedFHE"
 HOST_TABLE_BYTES = 5 << 30  # above this the reference keeps the table on the host
@@ -106,19 +108,26 @@ def result_zero_mask(ctx, result: Ciphertext, sk, length: int,
     context of its limb count: a BFV result on a GPU on the device
     (``DeviceDecryptor``, kept in ``decryptors`` by limb count; no noise
     estimate), a BGV result, or any on the CPU, on the host.
-    -> (mask, noise bits or None)."""
-    n_limbs = result.data.shape[-2]
-    dctx = ctx.context_for_limbs(n_limbs)
-    dsk = ctx.shrink_key_to(sk, n_limbs)
-    if ctx.device.type == "cuda" and result.form == "bfv":
-        if n_limbs not in decryptors:
-            decryptors[n_limbs] = DeviceDecryptor(dctx)
-        return decryptors[n_limbs].zero_mask(result.data, dsk.s_mont, length).cpu().numpy(), None
-    slots, noise = dctx.decrypt(result, dsk, length=length)
-    return np.asarray(slots, dtype=object) == 0, noise
+    -> (mask, noise bits or None). Span ``client.decrypt``, holding
+    ``decrypt.device`` (the device decrypt and its mask's download) or the
+    host decrypt's spans (``BGVContext.decrypt``)."""
+    with TRACER.span("client.decrypt"):
+        n_limbs = result.data.shape[-2]
+        dctx = ctx.context_for_limbs(n_limbs)
+        dsk = ctx.shrink_key_to(sk, n_limbs)
+        if ctx.device.type == "cuda" and result.form == "bfv":
+            if n_limbs not in decryptors:
+                decryptors[n_limbs] = DeviceDecryptor(dctx)
+            with TRACER.span("decrypt.device", device=ctx.device):
+                mask = decryptors[n_limbs].zero_mask(result.data, dsk.s_mont, length)
+                return mask.cpu().numpy(), None
+        slots, noise = dctx.decrypt(result, dsk, length=length)
+        return np.asarray(slots, dtype=object) == 0, noise
 
 
 class BatchedFHEPSIClient(PSIClientBase):
+    exchanges = 0  # online phases run: the ordinal of their spans
+
     def __init__(self, data, params: PSIParams, ht: HashTableParams,
                  channel: Channel, device="cuda", **kw):
         super().__init__(data, params, channel, PROTOCOL_NAME, **kw)
@@ -149,12 +158,10 @@ class BatchedFHEPSIClient(PSIClientBase):
             seed=p.item_seed ^ 0x5EED,
         )
         sp = self.ctx.params
-        self.channel.write_tensor(
-            np.array([sp.ring_dim, sp.plaintext_modulus, sp.num_limbs,
-                      1 if sp.scheme == "bgv" else 0], np.uint64)
-        )
-        self.channel.write_tensor(to_numpy(self.rlk.b_mont))
-        self.channel.write_tensor(to_numpy(self.rlk.a_mont))
+        send(self.channel, np.array([sp.ring_dim, sp.plaintext_modulus, sp.num_limbs,
+                                     1 if sp.scheme == "bgv" else 0], np.uint64))
+        send(self.channel, self.rlk.b_mont)
+        send(self.channel, self.rlk.a_mont)
 
     def run_offline_phase(self) -> None:
         self.client_table.insert_all(self.client_set)
@@ -181,11 +188,9 @@ class BatchedFHEPSIClient(PSIClientBase):
         """Read the result frames and decrypt them to the per-slot zero mask
         (``result_zero_mask``); on the device decrypt, noise_bits only with
         --verbose, which adds the host decrypt."""
-        meta = self.channel.read_tensor()
-        form = "bgv" if int(meta[0]) else "bfv"
-        result = ciphertext_from_numpy(
-            self.channel.read_tensor(), self.device, form, int(meta[1])
-        )
+        meta = receive(self.channel)
+        result = Ciphertext(receive(self.channel, self.device),
+                            "bgv" if int(meta[0]) else "bfv", int(meta[1]))
         length = self.ht.batch_slots
         mask, self.noise_bits = result_zero_mask(self.ctx, result, self.sk, length,
                                                  self._decryptors)
@@ -194,32 +199,37 @@ class BatchedFHEPSIClient(PSIClientBase):
         return mask
 
     def run_online_phase(self) -> None:
-        if self.params.num_queries > 1:
-            return self._run_online_many(self.params.num_queries)
-        self.channel.write_tensor(to_numpy(self.minus_ct.data))
-        n_chunks = self._effective_chunks()
-        self.channel.write_tensor(np.array([n_chunks], np.uint64))
-        w = self.ht.each_cuckoo_table_size // n_chunks
-        for c in range(n_chunks):
-            self.channel.write_tensor(to_numpy(self.idx_ct.data[:, c * w : (c + 1) * w]))
-        self.intersection_calculated = self.client_ops.extract_intersection_mask(
-            self._read_and_decrypt()
-        )
+        self.exchanges += 1
+        with TRACER.span("client.exchange", exchange=self.exchanges):
+            if self.params.num_queries > 1:
+                return self._run_online_many(self.params.num_queries)
+            send(self.channel, self.minus_ct.data)
+            n_chunks = self._effective_chunks()
+            send(self.channel, np.array([n_chunks], np.uint64))
+            w = self.ht.each_cuckoo_table_size // n_chunks
+            for c in range(n_chunks):
+                send(self.channel, self.idx_ct.data[:, c * w : (c + 1) * w])
+            mask = self._read_and_decrypt()
+            with TRACER.span("client.extract"):
+                self.intersection_calculated = self.client_ops.extract_intersection_mask(mask)
 
     def _run_online_many(self, Q: int) -> None:
         """Q query sets in ONE exchange (--queries Q); the client checks that
         every query's zero mask agrees before extracting."""
-        self.channel.write_tensor(to_numpy(torch.stack([self.minus_ct.data] * Q)))
-        self.channel.write_tensor(to_numpy(torch.stack([self.idx_ct.data] * Q)))
+        send(self.channel, torch.stack([self.minus_ct.data] * Q))
+        send(self.channel, torch.stack([self.idx_ct.data] * Q))
         per_q = self._read_and_decrypt().any(axis=1)  # (Q, D, batch) -> (Q, batch)
         if not (per_q == per_q[0]).all():
             raise ValueError("multi-query results disagree across the batch")
-        self.intersection_calculated = self.client_ops.extract_intersection_mask(
-            per_q[0]
-        )
+        with TRACER.span("client.extract"):
+            self.intersection_calculated = self.client_ops.extract_intersection_mask(
+                per_q[0]
+            )
 
 
 class BatchedFHEPSIServer(PSIServerBase):
+    exchanges = 0  # online phases run: the ordinal of their spans
+
     def __init__(self, data, params: PSIParams, ht: HashTableParams,
                  channel: Channel, device="cuda", **kw):
         super().__init__(data, params, channel, PROTOCOL_NAME, **kw)
@@ -231,7 +241,7 @@ class BatchedFHEPSIServer(PSIServerBase):
         self.hasher = TabulationHashing(
             p.hash_seed, ht.n_simple_hash_functions + ht.n_cuckoo_hash_functions
         )
-        meta = self.channel.read_tensor()
+        meta = receive(self.channel)
         if meta.shape != (4,):
             raise ValueError(f"malformed scheme-params frame {meta.shape}")
         ring_dim, t, limbs, is_bgv = (int(v) for v in meta)
@@ -240,9 +250,8 @@ class BatchedFHEPSIServer(PSIServerBase):
             ring_dim, t, limbs, "bgv" if is_bgv else "bfv"
         )
         self.ctx = make_context(sp, seed=None, device=self.device)
-        self.rlk = relin_key_from_numpy(
-            self.channel.read_tensor(), self.channel.read_tensor(), self.device
-        )
+        self.rlk = RelinKey(b_mont=receive(self.channel, self.device),
+                            a_mont=receive(self.channel, self.device))
         self.server_table = HierarchicalCuckooHashTable.from_params(
             self.hasher, ht, seed=p.item_seed ^ 0x7A11
         )
@@ -264,62 +273,60 @@ class BatchedFHEPSIServer(PSIServerBase):
         self.offline_computation_us = (time.monotonic_ns() - begin) // 1000
 
     def run_online_phase(self) -> None:
-        minus_raw = self.channel.read_tensor()
-        if minus_raw.ndim == 4:  # (Q, 2, L, N): multi-query transaction
-            return self._run_online_many(minus_raw)
-        n_chunks = int(self.channel.read_tensor()[0])
-        P = self.ht.each_cuckoo_table_size
-        if not (1 <= n_chunks <= P and P % n_chunks == 0):
-            raise ValueError(
-                f"invalid stream chunk count {n_chunks} from client "
-                f"(must divide the inner position count {P})"
-            )
-        minus = from_numpy(minus_raw, self.device)
-        if n_chunks == 1:
-            idx = from_numpy(self.channel.read_tensor(), self.device)
+        self.exchanges += 1
+        with TRACER.span("server.exchange", exchange=self.exchanges):
+            minus = receive(self.channel, self.device)
+            if minus.ndim == 4:  # (Q, 2, L, N): multi-query transaction
+                return self._run_online_many(minus)
+            n_chunks = int(receive(self.channel)[0])
+            P = self.ht.each_cuckoo_table_size
+            if not (1 <= n_chunks <= P and P % n_chunks == 0):
+                raise ValueError(
+                    f"invalid stream chunk count {n_chunks} from client "
+                    f"(must divide the inner position count {P})"
+                )
+            if n_chunks == 1:
+                idx = receive(self.channel, self.device)
             begin = time.monotonic_ns()
-            result = self.pie(idx, minus)
-        else:
-            begin = time.monotonic_ns()
-            # each chunk's position sum is enqueued as it arrives, so the
-            # device works while the next chunk is read off the wire
-            w = P // n_chunks
+            with TRACER.span("server.step"):
+                if n_chunks == 1:
+                    result = self.pie(idx, minus)
+                else:
+                    # each chunk's position sum is enqueued as it arrives, so
+                    # the device works while the next chunk is read off the wire
+                    w = P // n_chunks
+                    chunks = ((c * w, receive(self.channel, self.device, non_blocking=True))
+                              for c in range(n_chunks))
+                    result = self.pie.run_streamed(chunks,
+                                                   Ciphertext(minus, self.ctx.default_form))
+                _sync(self.device)
+            self.online_computation_us = (time.monotonic_ns() - begin) // 1000
+            send(self.channel, np.array([1 if result.form == "bgv" else 0, result.scale],
+                                        np.uint64))
+            send(self.channel, result.data)
+            if self.params.export_performance:
+                self.export_measurements()
 
-            def chunks():
-                for c in range(n_chunks):
-                    yield c * w, to_device_async(self.channel.read_tensor(), self.device)
-
-            result = self.pie.run_streamed(chunks(), Ciphertext(minus, self.ctx.default_form))
-        _sync(self.device)
-        self.online_computation_us = (time.monotonic_ns() - begin) // 1000
-        self.channel.write_tensor(
-            np.array([1 if result.form == "bgv" else 0, result.scale], np.uint64)
-        )
-        self.channel.write_tensor(to_numpy(result.data))
-        if self.params.export_performance:
-            self.export_measurements()
-
-    def _run_online_many(self, minus_raw) -> None:
+    def _run_online_many(self, minus_b: torch.Tensor) -> None:
         """Serve a (Q, ...) multi-query transaction."""
-        Q = minus_raw.shape[0]
+        Q = minus_b.shape[0]
         if not (2 <= Q <= 1024):
             raise ValueError(f"multi-query batch size {Q} outside [2, 1024]")
-        idx_raw = self.channel.read_tensor()
-        if idx_raw.ndim != 6 or idx_raw.shape[0] != Q:
+        idx_b = receive(self.channel, self.device)
+        if idx_b.ndim != 6 or idx_b.shape[0] != Q:
             raise ValueError(
-                f"multi-query index tensor shape {idx_raw.shape} does not "
+                f"multi-query index tensor shape {tuple(idx_b.shape)} does not "
                 f"match batch size {Q}"
             )
-        idx_b = from_numpy(idx_raw, self.device)
-        minus_b = from_numpy(minus_raw, self.device)
         begin = time.monotonic_ns()
-        out = self.pie.run_many(idx_b, minus_b)
-        _sync(self.device)
+        with TRACER.span("server.step"):
+            out = self.pie.run_many(idx_b, minus_b)
+            _sync(self.device)
         self.online_computation_us = (time.monotonic_ns() - begin) // 1000
         # the JAX server's frame: the native form and scale 1, even where a
         # leveled result carries prod q_l^-1 mod t (ROADMAP Queue 3)
         is_bgv = 1 if self.ctx.default_form == "bgv" else 0
-        self.channel.write_tensor(np.array([is_bgv, 1], np.uint64))
-        self.channel.write_tensor(to_numpy(out))
+        send(self.channel, np.array([is_bgv, 1], np.uint64))
+        send(self.channel, out)
         if self.params.export_performance:
             self.export_measurements()

@@ -14,6 +14,10 @@ Two implementations:
 
 Tensor serialization is a minimal versioned framing of numpy buffers --
 ciphertexts are uint32 limb tensors, so one message = one dense array.
+
+A read's span ``wire.wait`` (``utils.profiling.TRACER``) holds the time it
+blocks for the peer: the loopback queue's ``get``, or a TCP read until the
+length prefix is in.
 """
 
 from __future__ import annotations
@@ -24,6 +28,8 @@ import struct
 import time
 
 import numpy as np
+
+from nested_hashing_psi_tpu_torch.utils.profiling import TRACER
 
 _MAGIC = b"NHP1"
 
@@ -105,7 +111,7 @@ class Channel:
 
     def write_tensor(self, arr) -> None:
         """Accepts numpy arrays or CPU tensors (the serialization boundary;
-        the port converts device tensors with ``convert.to_numpy`` first)."""
+        the port sends device tensors through ``convert.send``)."""
         self.write_msg(tensor_to_bytes(np.asarray(arr)))
 
     def read_tensor(self) -> np.ndarray:
@@ -153,7 +159,8 @@ class LoopbackChannel(Channel):
         self._outbox.put(_POISON)
 
     def read_msg(self) -> bytes:
-        msg = self._inbox.get()
+        with TRACER.span("wire.wait"):
+            msg = self._inbox.get()
         if msg is _POISON:
             raise ConnectionError("peer failed (poisoned loopback channel)")
         if not isinstance(msg, bytes):
@@ -208,7 +215,8 @@ class TCPChannel(Channel):
         self.bytes_out += len(frame)
 
     def read_msg(self) -> bytes:
-        size_buf = self._read_exact(8)
+        with TRACER.span("wire.wait"):
+            size_buf = self._read_exact(8)
         (size,) = struct.unpack("<Q", size_buf)
         if size > self.max_msg_bytes:
             # the length prefix is untrusted: never allocate from it blindly

@@ -23,7 +23,7 @@ import numpy as np
 import torch
 
 from nested_hashing_psi_tpu_torch.config import HashTableParams, PSIParams
-from nested_hashing_psi_tpu_torch.convert import from_numpy, to_numpy
+from nested_hashing_psi_tpu_torch.convert import from_numpy, receive, send
 from nested_hashing_psi_tpu_torch.fhe.bfv import make_context
 from nested_hashing_psi_tpu_torch.fhe.bgv import Ciphertext, RelinKey
 from nested_hashing_psi_tpu_torch.fhe.device_decrypt import DeviceDecryptor
@@ -90,13 +90,11 @@ class SimpleFHEPSIClient(PSIClientBase):
             seed=p.item_seed ^ 0x51E,
         )
         sp = self.ctx.params
-        self.channel.write_tensor(
-            np.array([sp.ring_dim, sp.plaintext_modulus, sp.num_limbs,
-                      1 if sp.scheme == "bgv" else 0], np.uint64)
-        )
-        self.channel.write_tensor(np.array(els, np.int64))
-        self.channel.write_tensor(to_numpy(torch.stack([self.gks[k].b_mont for k in els])))
-        self.channel.write_tensor(to_numpy(torch.stack([self.gks[k].a_mont for k in els])))
+        send(self.channel, np.array([sp.ring_dim, sp.plaintext_modulus, sp.num_limbs,
+                                     1 if sp.scheme == "bgv" else 0], np.uint64))
+        send(self.channel, np.array(els, np.int64))
+        send(self.channel, torch.stack([self.gks[k].b_mont for k in els]))
+        send(self.channel, torch.stack([self.gks[k].a_mont for k in els]))
 
     def run_offline_phase(self) -> None:
         self.client_table.insert_all(self.client_set)
@@ -112,9 +110,9 @@ class SimpleFHEPSIClient(PSIClientBase):
         _sync(self.device)  # the offline phase owns this cost
 
     def run_online_phase(self) -> None:
-        self.channel.write_tensor(to_numpy(self.idx_ct.data))
+        send(self.channel, self.idx_ct.data)
         ctx, maxpp = self.ctx, self.ht.max_items_per_position
-        data = from_numpy(self.channel.read_tensor(), self.device)
+        data = receive(self.channel, self.device)
         n_pies = data.shape[0]
         flat = data.reshape(-1, 2, ctx.L, ctx.n)
         # decrypt in bounded chunks: the whole (nPies*H)-row stack's
@@ -183,11 +181,11 @@ class SimpleFHEPSIServer(PSIServerBase):
         self.offline_computation_us = (time.monotonic_ns() - begin) // 1000
 
     def run_online_phase(self) -> None:
-        idx = Ciphertext(from_numpy(self.channel.read_tensor(), self.device), self.ctx.default_form)
+        idx = Ciphertext(receive(self.channel, self.device), self.ctx.default_form)
         begin = time.monotonic_ns()
         result = self.pie.run(idx)
         _sync(self.device)
         self.online_computation_us = (time.monotonic_ns() - begin) // 1000
-        self.channel.write_tensor(to_numpy(result.data))
+        send(self.channel, result.data)
         if self.params.export_performance:
             self.export_measurements()

@@ -124,7 +124,7 @@ JAX_KEYS = {"metric", "value", "unit", "vs_baseline", "resident", "hbm_batch", "
 RENAMED = {"jnp_hbm": "plain_hbm", "vmem_resident": "l2_resident"}
 JAX_PIE_KEYS = {"config", "H", "D", "P", "limbs", "batch_slots", "ms_per_query", "pipeline_Q",
                 "ms_per_query_single", "ms_per_query_steady", "ms_per_query_device",
-                "depth_rows_per_sec", "modmul_gops"}
+                "depth_rows_per_sec"}
 
 
 def test_bench_json_has_every_key():

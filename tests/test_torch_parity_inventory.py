@@ -120,6 +120,9 @@ JAX_ONLY = {
         "the pass_device_arrays option, left out on purpose: the port's loopback "
         "serializes every frame through Channel.read_tensor/write_tensor, as TCP does",
     (_jp("protocol/channel.py"), "LoopbackChannel.write_tensor"): "as read_tensor",
+    (_jp("utils/profiling.py"), "batched_pie_op_counts"):
+        "a static op count its docstring calls rough, read by no metric; the port's "
+        "benchmark times the kernels (psi_bench/) and K2's bound is benchmarks/card.py's",
     (_jp("utils/jaxcache.py"), "enable_persistent_cache"):
         "JAX's persistent XLA compilation cache; the port compiles nothing at run time "
         "but its CUDA kernels, built once into build/ by ops/cuda_lib.py",

@@ -105,6 +105,7 @@ def test_server_rejects_invalid_chunk_count():
     srv = t_proto.BatchedFHEPSIServer.__new__(t_proto.BatchedFHEPSIServer)
     srv.channel = ours
     srv.ht = small_ht()
+    srv.device = torch.device("cpu")  # each frame is uploaded as it is received
     with pytest.raises(ValueError, match="chunk count 7"):
         srv.run_online_phase()
 
