@@ -44,13 +44,16 @@
    times -- one query, ``--queries 4`` and ``--streamChunks 4`` -- each
    self-verifying "Set matches!" with 1024 items found; the client decrypts
    on the device. Launch counters are reset just before each run and read
-   just after it; each run must have launched K1 and K2;
+   just after it; each run must have launched K1, K2 and the decrypt kernel;
 3. times the one-query server's online step at steady state (host clock,
    20 queries) and traces 10 more with torch.profiler: device time per
    query by kernel (K1, K2, the plain PyTorch kernels; K1 also by kernel
    instance) and the device's busy share of the traced span;
-4. decrypts the one-query server's result on the device (zero mask) and on
-   the host, which must agree, and times both;
+4. decrypts the one-query server's result and the --queries 4 server's
+   (Q, D) result with the decrypt kernel (zero mask), the plain version and
+   the host decrypt, which must agree bit for bit, and times each (the
+   kernel beside its bound); after 6 the flat and the leveled --bgv runs'
+   results and the SimpleFHE client's first decrypt chunk the same way;
 5. builds the one-query server's table twice more with one mask seed, on
    the device and host-resident (pinned, uploaded in position slices), and
    checks that run() is bit-equal, with the default slice rule and with
@@ -69,13 +72,14 @@
    device table. Save and load seconds and file sizes are printed; the
    resumed runs' launches add into the kernel line;
 6. drives three more paths the same way: ``--bgv`` at the main geometry
-   (flat BGV, L = 9; 1024 found, the client decrypts on the host), ``--bgv
+   (flat BGV, L = 9; 1024 found, the client decrypts on the device), ``--bgv
    -B 16`` leveled on the main geometry's table with a 4096-item server
-   (L = 6, the result ships 5 limbs; 128 found), both launching K1 and K2
-   and traced as in 3, and SimpleFHE at full width and reduced scale (32
-   inner tables at L = 7; 8 found, K1 launched, the client decrypts on
-   the device; traced over 3 timed and 2 traced queries). The kernel
-   line's launches sum all six runs;
+   (L = 6, the result ships 5 limbs; 128 found), both launching K1, K2 and
+   the decrypt kernel and traced as in 3, and SimpleFHE at full width and
+   reduced scale (32 inner tables at L = 7; 8 found, K1 and the decrypt
+   kernel launched; traced over 3 timed and 2 traced queries). The kernel
+   line's launches sum all six runs, and its decrypt entry holds each
+   decrypt reading of 4;
 7. [elgamal]: SimpleElGamal and PrecompElGamal (P-256, -B 128, --nThreads 2)
    at 2^14 server x 32 client items, and SimpleElGamal on K-163, through
    the same entry points with device cuda, each verifying with the
@@ -225,7 +229,12 @@ def fail(msg: str) -> None:
 if ROOT not in sys.path:  # behind a tree that k2_sweep.py put first
     sys.path.append(ROOT)
 try:  # the card's peaks, the kernels' bounds and the timing, shared with the port's tools
-    from nested_hashing_psi_tpu_torch.benchmarks.card import k1_bound, k2_bound, k3_bound
+    from nested_hashing_psi_tpu_torch.benchmarks.card import (
+        decrypt_bound,
+        k1_bound,
+        k2_bound,
+        k3_bound,
+    )
     from nested_hashing_psi_tpu_torch.benchmarks.timing import graph_ms, time_ms, wall_ms
 except ImportError as e:
     fail(f"the port is not importable here ({e}); run from the repository root")
@@ -798,6 +807,58 @@ def goldens_phase(smi_line: str) -> dict:
     return out
 
 
+def decrypt_check(label: str, ctx, sk, result, length: int) -> dict:
+    """The decrypt kernel on one result (its own form, leading shape and
+    shipped limbs, decrypted in the context of its limb count): its mask
+    against the plain version's and the host decrypt's, bit for bit; the
+    kernel's CUDA-event time on the phase, the whole ``zero_mask`` call
+    (the phase's mont_mul, K1's inverse NTT, the kernel) by CUDA events and
+    by the host clock with the mask's download, the plain version and the
+    host decrypt, and the kernel's bound."""
+    import numpy as np
+
+    from nested_hashing_psi_tpu_torch.fhe.device_decrypt import DeviceDecryptor
+    from nested_hashing_psi_tpu_torch.ops import decrypt_cuda
+
+    L = result.data.shape[-2]
+    dctx, dsk = ctx.context_for_limbs(L), ctx.shrink_key_to(sk, L)
+    t0 = time.perf_counter()
+    dec = DeviceDecryptor(dctx, result.form)
+    build_ms = (time.perf_counter() - t0) * 1e3
+    cuda = result.data.device
+    before = decrypt_cuda.launches
+    mask = dec.zero_mask(result.data, dsk.s_mont, length)
+    if decrypt_cuda.launches != before + 1:
+        fail(f"[decrypt] {label}: zero_mask launched {decrypt_cuda.launches - before} kernels")
+    lo, hi = dec._slot_planes(result.data, dsk.s_mont)
+    plain = ((lo == 0) & (hi == 0))[..., :length]
+    slots, _ = dctx.decrypt(result, dsk, length=length)
+    host = np.asarray(slots, dtype=object) == 0
+    err = int((mask != plain).sum()) + int((mask.cpu().numpy() != host).sum())
+    if err:
+        fail(f"the decrypt kernel's mask ({label}) differs from the plain version's "
+             f"or the host decrypt's in {err} slots")
+    phase = dec._phase(result.data, dsk.s_mont)
+    rows = phase.numel() // (L * dctx.n)
+    args = (phase.reshape(rows, L, dctx.n), *dec.kernel_tables, result.form == "bgv", length)
+    kernel_ms = time_ms(lambda: decrypt_cuda.zero_mask(*args), cuda, 50)
+    call_ms = time_ms(lambda: dec.zero_mask(result.data, dsk.s_mont, length), cuda, 20)
+    call_wall = wall_ms(lambda: dec.zero_mask(result.data, dsk.s_mont, length).cpu(), cuda, 10)
+    plain_ms = time_ms(lambda: dec._slot_planes(result.data, dsk.s_mont), cuda, 3)
+    host_ms = wall_ms(lambda: dctx.decrypt(result, dsk, length=length), cuda, 3)
+    b_ms, b_by = decrypt_bound(rows, L, dctx.n, length, result.form == "bgv")
+    print(f"[decrypt] {label}: {result.form} result {tuple(result.data.shape)}, t = {dctx.t}: "
+          f"the kernel's mask == the plain version's == the host decrypt's "
+          f"({int(host.sum())} zero slots of {host.size}); kernel {kernel_ms:.4f} ms (CUDA "
+          f"events; bound {b_ms:.4f} ms by {b_by}, share {b_ms / kernel_ms:.3f}); zero_mask "
+          f"call {call_ms:.4f} ms, {call_wall:.4f} ms with the mask's copy to the host; plain "
+          f"{plain_ms:.3f} ms; host decrypt {host_ms:.3f} ms; decryptor built in "
+          f"{build_ms:.1f} ms", flush=True)
+    return {"max_abs_err": err, "shape": list(result.data.shape), "t": int(dctx.t),
+            "ms": kernel_ms, "call_ms": call_ms, "call_wall_ms": call_wall,
+            "plain_ms": plain_ms, "host_ms": host_ms, "bound_ms": b_ms, "bound_by": b_by}
+
+
 def max_err(got, want, name: str) -> int:
     import torch
 
@@ -1102,15 +1163,21 @@ def main() -> None:
         )
         from nested_hashing_psi_tpu_torch.benchmarks import common as bench_common
         from nested_hashing_psi_tpu_torch.fhe.bgv import BGVContext, Ciphertext
-        from nested_hashing_psi_tpu_torch.fhe.device_decrypt import DeviceDecryptor
         from nested_hashing_psi_tpu_torch.fhe.params import SchemeParams, bfv_mul_limbs
-        from nested_hashing_psi_tpu_torch.ops import cuda_lib, ntt_cuda, ntt_mxu, pie_kernels
+        from nested_hashing_psi_tpu_torch.ops import (
+            cuda_lib,
+            decrypt_cuda,
+            ntt_cuda,
+            ntt_mxu,
+            pie_kernels,
+        )
         from nested_hashing_psi_tpu_torch.ops.basis import BFVMulConverter
         from nested_hashing_psi_tpu_torch.ops.ntt import NTTPlan, intt, ntt
         from nested_hashing_psi_tpu_torch.ops.primes import ntt_primes
         from nested_hashing_psi_tpu_torch.ops.split_plan import SplitNTTPlan
         from nested_hashing_psi_tpu_torch.pie.batched_fhe import BatchedFHEPIE
         from nested_hashing_psi_tpu_torch.pie.simple_fhe import SimpleFHEPIE
+        from nested_hashing_psi_tpu_torch.protocol import simple_fhe
         from nested_hashing_psi_tpu_torch.protocol.runner import run_in_process
     except ImportError as e:
         fail(f"the port is not importable here ({e}); run from the repository root")
@@ -1481,7 +1548,7 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # ---- the main path: three protocol runs ----------------------------
-    launches, runs = {"ntt_fwd": 0, "ntt_inv": 0, "pie_ip": 0}, {}
+    launches, runs = {"ntt_fwd": 0, "ntt_inv": 0, "pie_ip": 0, "decrypt_mask": 0}, {}
 
     def drive(label, flags):
         """One protocol run through the user entry points, the launch counts
@@ -1489,13 +1556,14 @@ def main() -> None:
         and fails unless it verified with the expected intersection."""
         ntt_cuda.reset_launches()
         pie_kernels.reset_launches()
+        decrypt_cuda.reset_launches()
         torch.cuda.reset_peak_memory_stats()
         psi, ht, device = cli.parse_args(flags)
         t0 = time.perf_counter()
         client, server, ok = run_in_process(psi, ht, device=device)
         wall = time.perf_counter() - t0
         got = {"ntt_fwd": ntt_cuda.launches["ntt"], "ntt_inv": ntt_cuda.launches["intt"],
-               "pie_ip": pie_kernels.launches}
+               "pie_ip": pie_kernels.launches, "decrypt_mask": decrypt_cuda.launches}
         peak = torch.cuda.max_memory_allocated() / 2**30
         found = len(client.intersection_calculated)
         Q, m, pie = psi.num_queries, client.measurements, server.pie
@@ -1557,27 +1625,15 @@ def main() -> None:
     client, server = runs["queries=1"]
 
     # ---- device decrypt vs host decrypt on the one-query result ---------
-    result = server.pie.run(client.idx_ct, client.minus_ct)
-    L_ship = result.data.shape[-2]
-    dctx = client.ctx.context_for_limbs(L_ship)
-    dsk = client.ctx.shrink_key_to(client.sk, L_ship)
-    batch = client.ht.batch_slots
-    t0 = time.perf_counter()
-    dec = DeviceDecryptor(dctx)
-    build_ms = (time.perf_counter() - t0) * 1e3
-    mask_dev = dec.zero_mask(result.data, dsk.s_mont, batch).cpu().numpy()
-    slots, _ = dctx.decrypt(result, dsk, length=batch)
-    mask_host = np.asarray(slots, dtype=object) == 0
-    if mask_dev.shape != mask_host.shape or not (mask_dev == mask_host).all():
-        fail("the device decrypt's zero mask differs from the host decrypt's")
-    dev_ms = time_ms(lambda: dec.zero_mask(result.data, dsk.s_mont, batch), CUDA, 10)
-    dev_wall = wall_ms(lambda: dec.zero_mask(result.data, dsk.s_mont, batch).cpu(), CUDA, 5)
-    host_ms = wall_ms(lambda: dctx.decrypt(result, dsk, length=batch), CUDA, 3)
-    print(f"[decrypt] result {tuple(result.data.shape)}: device zero mask == host "
-          f"decrypt mask ({int(mask_dev.sum())} zero slots); device {dev_ms:.3f} ms "
-          f"(CUDA events), {dev_wall:.3f} ms with the mask's copy to the host; "
-          f"host decrypt {host_ms:.3f} ms; decryptor constants built in {build_ms:.1f} ms",
-          flush=True)
+    decrypts = {"bfv": decrypt_check("queries=1", client.ctx, client.sk,
+                                     server.pie.run(client.idx_ct, client.minus_ct),
+                                     client.ht.batch_slots)}
+    client4, server4 = runs["queries=4"]
+    many = server4.pie.run_many(torch.stack([client4.idx_ct.data] * 4),
+                                torch.stack([client4.minus_ct.data] * 4))
+    decrypts["queries4"] = decrypt_check("queries=4", client4.ctx, client4.sk,
+                                         Ciphertext(many, "bfv", 1), client4.ht.batch_slots)
+    del many
 
     # ---- host-resident table vs device table, same mask seed ------------
     t0 = time.perf_counter()
@@ -1618,26 +1674,42 @@ def main() -> None:
         fail(f"flat --bgv: L={server.ctx.L} leveled={server.pie.leveled}, expected L = 9 flat")
     if min(got.values()) <= 0:
         fail(f"flat --bgv did not launch K1 and K2: {got}")
-    if client._decryptors or client.noise_bits is None:
-        fail("the flat --bgv client did not decrypt on the host")
+    if not client._decryptors or client.noise_bits is not None:
+        fail("the flat --bgv client did not decrypt on the device")
+    decrypts["bgv"] = decrypt_check("bgv flat", client.ctx, client.sk,
+                                    server.pie.run(client.idx_ct, client.minus_ct),
+                                    client.ht.batch_slots)
     client, server, got = drive("bgv leveled", LEVELED_FLAGS)
-    shipped = server.pie.run(client.idx_ct, client.minus_ct).data.shape[-2]
+    leveled = server.pie.run(client.idx_ct, client.minus_ct)
+    shipped = leveled.data.shape[-2]
     print(f"[main] bgv leveled: the result ships {shipped} limbs", flush=True)
     if server.ctx.L != 6 or not server.pie.leveled or shipped != 5:
         fail(f"leveled --bgv: L={server.ctx.L} leveled={server.pie.leveled} shipped {shipped}")
     if min(got.values()) <= 0:
-        fail(f"leveled --bgv did not launch K1 and K2: {got}")
-    if client._decryptors or client.noise_bits is None:
-        fail("the leveled --bgv client did not decrypt on the host")
+        fail(f"leveled --bgv did not launch K1, K2 and the decrypt kernel: {got}")
+    if not client._decryptors or client.noise_bits is not None:
+        fail("the leveled --bgv client did not decrypt on the device")
+    decrypts["bgv_leveled"] = decrypt_check("bgv leveled", client.ctx, client.sk, leveled,
+                                            client.ht.batch_slots)
+    del leveled
     traced("bgv flat")
     traced("bgv leveled")
     client, server, got = drive("SimpleFHE", SIMPLE_FLAGS)
     if server.ctx.L != 7 or server.pie._pie_chunk() != simple_chunk:
         fail(f"SimpleFHE: L={server.ctx.L}, pie chunk {server.pie._pie_chunk()}")
-    if got["ntt_fwd"] <= 0 or got["ntt_inv"] <= 0:
-        fail(f"SimpleFHE did not launch K1: {got}")
+    if got["ntt_fwd"] <= 0 or got["ntt_inv"] <= 0 or got["decrypt_mask"] <= 0:
+        fail(f"SimpleFHE did not launch K1 and the decrypt kernel: {got}")
     if client.decryptor is None:
         fail("the SimpleFHE client did not decrypt on the device")
+    # the client's first decrypt chunk of the result, as it decrypts it
+    simple = server.pie.run(client.idx_ct).data
+    flat = simple.reshape(-1, *simple.shape[-3:])
+    chunk = max(1, simple_fhe.DECRYPT_CHUNK_BYTES // (flat[0].numel() * 4))
+    decrypts["simple"] = decrypt_check(
+        "SimpleFHE chunk", client.ctx, client.sk,
+        Ciphertext(flat[:chunk].clone(), client.ctx.default_form, 1),
+        client.ht.max_items_per_position)
+    del simple, flat
     traced("SimpleFHE", timed=3, n_traced=2, warm=1)
     print(f"[main] kernel launches over all six runs {launches}", flush=True)
     torch.cuda.empty_cache()
@@ -1718,6 +1790,10 @@ def main() -> None:
                  for label, tr in k2_paths.items()
                  for k in ("K2_ms_per_query", "K2_launches_per_query",
                            "plain_ms_per_query", "plain_launches_per_query")}),
+        {"name": "decrypt_mask", "route": "cuda", "source": f"{csrc}/decrypt.cu",
+         "replaces": None, "launches": launches["decrypt_mask"], "library_ms": None,
+         **{f"{form}_{k}" if form != "bfv" else k: v
+            for form, d in decrypts.items() for k, v in d.items()}},
         entry("ntt_mxu_fwd", f"{csrc}/ntt_mxu.cu", "nested_hashing_psi_tpu/ops/ntt_mxu.py:323",
               "ntt_mxu_fwd_q", k3_launches["ntt_mxu_fwd"], launches_from=k3_note,
               k1_ms=results["ntt_mxu_fwd_q"][3], int8_products_ms=results["ntt_mxu_fwd_q"][4]),

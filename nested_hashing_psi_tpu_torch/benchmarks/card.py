@@ -31,6 +31,15 @@ SHOUP_OPS = 4       # the inverse's n^-1: a second Shoup product in its last sta
 # which has half of the 128 lanes: INT32_OPS_S / 4 = 8.4 T/s, as the probe A1
 # measured it (benchmarks/bench_vpu_ops.py, mix mulhi: 8.3 T/s).
 WIDE_MUL_S = INT32_OPS_S / 4
+# The decrypt kernel's products, in slots of the FMA pipe (half the 128
+# lanes): a 64-bit Shoup product is the high half of x * wq (four wide
+# 32x32->64 products) and the low halves of x * w and q * t (one wide and
+# two low products each), 6 wide and 4 low, 16 slots; a coefficient's limb
+# takes a 32-bit Shoup product (3) and y times the 96-bit constant (three
+# wide products, 6), and under BGV a 64-bit Shoup product more.
+FMA_SLOTS_S = INT32_OPS_S / 2
+SHOUP64_SLOTS = 16
+CRT_LIMB_SLOTS = 9
 
 
 def bound(ops: float, ops_per_s: float, nbytes: float) -> tuple[float, str]:
@@ -57,6 +66,18 @@ def k2_bound(H: int, D: int, P: int, L: int, N: int, acc: bool = False) -> tuple
     out = H * D * 2 * L * N
     return bound(2 * H * D * P * L * N, WIDE_MUL_S,
                  4 * (H * P * 2 * L * N + H * D * P * L * N + out * (2 if acc else 1)) + 8 * L)
+
+
+def decrypt_bound(rows: int, L: int, n: int, length: int, bgv: bool) -> tuple[float, str]:
+    """The decrypt kernel on rows x L x n phase words: each read once, the
+    (rows, length) mask written once, the twiddle table (2n words of 8
+    bytes) and s2n read once; its operations the FMA-pipe slots of its
+    products: the CRT of every coefficient's limbs, then n/2 log n
+    butterflies of one 64-bit Shoup product each."""
+    logn = n.bit_length() - 1
+    per_limb = CRT_LIMB_SLOTS + (SHOUP64_SLOTS if bgv else 0)
+    slots = rows * (n * L * per_limb + n // 2 * logn * SHOUP64_SLOTS)
+    return bound(slots, FMA_SLOTS_S, rows * (L * n * 4 + length) + n * 20 + L * 64 + 32)
 
 
 def k3_bound(rows: int, L: int, n: int, m1: int, digits: int) -> tuple[float, str]:

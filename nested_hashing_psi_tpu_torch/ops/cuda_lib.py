@@ -45,6 +45,8 @@ _SIGNATURES = {
     # (x, y, tmp, ga, gb, tw, rc, primes, pinvs, rows, L, m1, m2, inverse,
     #  launched*, stream)
     "nhpsi_ntt_mxu": [_P] * 9 + [_I] * 5 + [ctypes.POINTER(_I), _P],
+    # (phase, mask, consts, psi, s2n, rows, L, logn, length, bgv, cluster, stream)
+    "nhpsi_decrypt_mask": [_P] * 5 + [_I] * 5 + [_P],
     # the probes under benchmarks/: (x, y, n, mix, k, stream)
     "nhpsi_probe_vpu_ops": [_P, _P, _I, _I, _I, _P],
     # (x, y, sa, sb, primes, B, L, m, variant, stream)

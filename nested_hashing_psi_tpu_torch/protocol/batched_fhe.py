@@ -5,10 +5,10 @@ phases and the same wire frames (scheme-params vector, relin key, minus and
 index ciphertexts, result meta + result ciphertexts, all uint32 tensors), so
 a port party can talk to a JAX party. Each party computes on an explicit
 ``device``; "cuda" raises when no GPU is present. On a GPU the client
-decrypts on the device straight to the zero mask (``fhe.device_decrypt``, the
-JAX package's on-chip branch); on the CPU it decrypts on the host, and so
-does a ``--bgv`` client everywhere (the JAX package has no BGV device
-decrypt either). ``--bgv`` runs the leveled PIE when t fits the device's
+decrypts on the device straight to the zero mask, BFV and ``--bgv`` results
+alike, in one launch of the decrypt kernel (``fhe.device_decrypt``; the JAX
+package's on-chip branch takes BFV only); on the CPU it decrypts on the
+host. ``--bgv`` runs the leveled PIE when t fits the device's
 mod-t arithmetic (16-bit items) and the flat product otherwise.
 ``--streamChunks`` sends the index ciphertexts in chunks that the server
 position-sums as they arrive, and a packed table above 5 GB stays in host
@@ -105,9 +105,9 @@ def _scheme_params(psi: PSIParams, ht: HashTableParams) -> SchemeParams:
 def result_zero_mask(ctx, result: Ciphertext, sk, length: int,
                      decryptors: dict) -> tuple[np.ndarray, float | None]:
     """A result's per-slot zero mask (..., D, length), decrypted in the
-    context of its limb count: a BFV result on a GPU on the device
-    (``DeviceDecryptor``, kept in ``decryptors`` by limb count; no noise
-    estimate), a BGV result, or any on the CPU, on the host.
+    context of its limb count: on a GPU on the device, BFV and BGV forms
+    alike (``DeviceDecryptor``, kept in ``decryptors`` by (form, limb
+    count); no noise estimate), on the CPU on the host.
     -> (mask, noise bits or None). Span ``client.decrypt``, holding
     ``decrypt.device`` (the device decrypt and its mask's download) or the
     host decrypt's spans (``BGVContext.decrypt``)."""
@@ -115,11 +115,12 @@ def result_zero_mask(ctx, result: Ciphertext, sk, length: int,
         n_limbs = result.data.shape[-2]
         dctx = ctx.context_for_limbs(n_limbs)
         dsk = ctx.shrink_key_to(sk, n_limbs)
-        if ctx.device.type == "cuda" and result.form == "bfv":
-            if n_limbs not in decryptors:
-                decryptors[n_limbs] = DeviceDecryptor(dctx)
+        if ctx.device.type == "cuda":
+            key = (result.form, n_limbs)
+            if key not in decryptors:
+                decryptors[key] = DeviceDecryptor(dctx, result.form)
             with TRACER.span("decrypt.device", device=ctx.device):
-                mask = decryptors[n_limbs].zero_mask(result.data, dsk.s_mont, length)
+                mask = decryptors[key].zero_mask(result.data, dsk.s_mont, length)
                 return mask.cpu().numpy(), None
         slots, noise = dctx.decrypt(result, dsk, length=length)
         return np.asarray(slots, dtype=object) == 0, noise
@@ -133,7 +134,7 @@ class BatchedFHEPSIClient(PSIClientBase):
         super().__init__(data, params, channel, PROTOCOL_NAME, **kw)
         self.ht = ht
         self.device = resolve_device(device)
-        self._decryptors: dict[int, DeviceDecryptor] = {}
+        self._decryptors: dict[tuple[str, int], DeviceDecryptor] = {}
 
     def run_setup_phase(self) -> None:
         p, ht = self.params, self.ht

@@ -24,6 +24,7 @@ from nested_hashing_psi_tpu_torch import convert
 from nested_hashing_psi_tpu_torch.fhe.bfv import make_context
 from nested_hashing_psi_tpu_torch.fhe.device_decrypt import DeviceDecryptor
 from nested_hashing_psi_tpu_torch.fhe.params import PLAINTEXT_MODULI, SchemeParams
+from nested_hashing_psi_tpu_torch.ops import decrypt_cuda
 from nested_hashing_psi_tpu_torch.ops import mod64 as tm
 
 torch.set_num_threads(1)
@@ -196,3 +197,222 @@ def test_device_decrypt_on_rescaled_pie_output():
     np.testing.assert_array_equal(mask.numpy(), np.asarray(jmask))
     inter = jops.extract_intersection_mask(mask.numpy())
     assert sorted(int(v) for v, _ in inter) == [105, 131]
+
+
+# ---- BGV-form results, the decrypt kernel's tables, result_zero_mask -------
+
+T32 = PLAINTEXT_MODULI[32]
+
+
+def _bgv_ct(t, limbs, ring=256, shape=(3,), seed=0):
+    """A port BGV context, its key, a BGV-form encryption of seeded slot
+    values of the given leading shape (every seventh slot 0) and the values."""
+    ctx = make_context(SchemeParams(ring_dim=ring, plaintext_modulus=t, num_limbs=limbs,
+                                    scheme="bgv"), seed=seed + 1, device="cpu")
+    sk, _ = ctx.keygen()
+    vals = np.random.default_rng(seed).integers(0, min(t, 1 << 60), size=(*shape, ring))
+    vals = vals.astype(object) % t
+    vals[..., ::7] = 0
+    pt = ctx.make_plaintext_rns(vals.reshape(-1, ring))
+    ct = ctx.encrypt_sk(pt.reshape(*shape, *pt.shape[-2:]), sk)
+    return ctx, sk, ct, vals
+
+
+def _host_slots(ctx, ct, sk):
+    slots, _ = ctx.decrypt(ct, sk)
+    return np.asarray(slots, dtype=object)
+
+
+@pytest.mark.parametrize("bits,limbs", [(32, 5), (40, 5), (48, 6)])
+def test_bgv_form_decrypt_matches_host_decrypt(bits, limbs):
+    """Flat BGV (the cells' 33-bit t, a 40- and a 48-bit t): the plain
+    version's slots and zero mask against BGVContext.decrypt's slots."""
+    ctx, sk, ct, vals = _bgv_ct(PLAINTEXT_MODULI[bits], limbs, seed=bits)
+    assert ctx.default_form == "bgv" and ct.form == "bgv"
+    dec = DeviceDecryptor(ctx)
+    assert dec.form == "bgv"
+    host = _host_slots(ctx, ct, sk)
+    np.testing.assert_array_equal(host, vals)
+    got = dec.slots(ct.data, sk.s_mont).numpy().astype(object)
+    np.testing.assert_array_equal(got, host)
+    mask = dec.zero_mask(ct.data, sk.s_mont, length=200)
+    assert mask.dtype == torch.bool and tuple(mask.shape) == (3, 200)
+    np.testing.assert_array_equal(mask.numpy(), host[:, :200] == 0)
+
+
+@pytest.mark.parametrize("switches", [1, 2])
+def test_bgv_form_decrypt_leveled_mod_switched(switches):
+    """Leveled BGV at t = 65537: a result mod-switched down the chain lives
+    on fewer limbs with a scale other than 1, which never moves a zero: the
+    zero mask equals the host decrypt's, and the slots are the host's
+    times the scale."""
+    ctx, sk, ct, vals = _bgv_ct(65537, 5, seed=switches)
+    for _ in range(switches):
+        ct = ctx.context_for_limbs(ct.data.shape[-2]).mod_switch(ct)
+    L = ct.data.shape[-2]
+    assert L == 5 - switches and ct.scale != 1
+    sctx, ssk = ctx.context_for_limbs(L), ctx.shrink_key_to(sk, L)
+    host = _host_slots(sctx, ct, ssk)
+    np.testing.assert_array_equal(host, vals)
+    dec = DeviceDecryptor(sctx, ct.form)
+    got = dec.slots(ct.data, ssk.s_mont).numpy().astype(object)
+    np.testing.assert_array_equal(got, host * ct.scale % 65537)
+    np.testing.assert_array_equal(dec.zero_mask(ct.data, ssk.s_mont).numpy(), host == 0)
+
+
+@pytest.mark.parametrize("t", [T32, 65537], ids=["flat", "t65537"])
+def test_bgv_form_decrypt_batched_leading_shape(t):
+    """(Q, D, 2, L, N) BGV results decrypt like each (2, L, N) one."""
+    ctx, sk, ct, vals = _bgv_ct(t, 4, shape=(2, 3), seed=4)
+    dec = DeviceDecryptor(ctx)
+    batch = dec.zero_mask(ct.data, sk.s_mont, length=100)
+    assert tuple(batch.shape) == (2, 3, 100)
+    for q in range(2):
+        for d in range(3):
+            assert torch.equal(batch[q, d], dec.zero_mask(ct.data[q, d], sk.s_mont, 100))
+    np.testing.assert_array_equal(batch.numpy(), vals[..., :100] == 0)
+
+
+def test_decryptor_refuses_unknown_form_and_bad_length():
+    ctx, sk, ct, _ = _bgv_ct(T32, 3)
+    with pytest.raises(ValueError):
+        DeviceDecryptor(ctx, "ckks")
+    with pytest.raises(ValueError):
+        DeviceDecryptor(ctx).zero_mask(ct.data, sk.s_mont, length=ctx.n + 1)
+
+
+def _shoup32(x, w, wq, q):
+    r = (x * w - ((x * wq) >> 32) * q) & 0xFFFFFFFF
+    return r - q if r >= q else r
+
+
+def _shoup64(x, w, wq, t):
+    r = (x * w - ((x * wq) >> 64) * t) & (2**64 - 1)
+    assert r < 2 * t
+    return r - t if r >= t else r
+
+
+def _kernel_mirror(phase, tables, bgv, length, cluster):
+    """csrc/decrypt.cu's arithmetic and indexing in Python integers, read
+    from the kernel's own tables: the CRT front per coefficient in its
+    128-bit words, then the transform with a row split over ``cluster``
+    blocks (the first log2 cluster stages read the partner's block, the rest
+    stay within a block), then the gather through s2n. -> (rows, length)."""
+    consts, psi, s2n = (tb.numpy() for tb in tables)
+    c = [int(v) for v in consts.view(np.uint64)]
+    w = [int(v) for v in psi.view(np.uint64)]
+    rows, L, n = phase.shape
+    t, E, H, W = c[0], n // cluster, decrypt_cuda.HEAD, decrypt_cuda.LIMB_WORDS
+    logn, log_c = n.bit_length() - 1, cluster.bit_length() - 1
+    out = np.zeros((rows, length), bool)
+    for r in range(rows):
+        m = []
+        for j in range(n):
+            lo, hi, acc = 1 << 71, 0, 0
+            for i in range(L):
+                q, inv, invq, tlo, thi, h, hq = c[H + W * i : H + W * i + 7]
+                y = _shoup32(int(phase[r, i, j]), inv, invq, q)
+                lo, hi = lo + y * tlo, hi + y * thi
+                acc = (acc + _shoup64(y, h, hq, t)) % t
+            assert lo >> 128 == 0 and hi >> 128 == 0
+            k = ((lo >> 64) + hi) >> 8
+            assert k >> 64 == 0
+            m.append((acc - _shoup64(k, c[1], c[2], t)) % t if bgv else k % t)
+        for s in range(logn):
+            tt, g0 = n >> (s + 1), 1 << s
+            if s < log_c:  # each block's own outputs, the partner read across
+                new = list(m)
+                for g in range(n):
+                    up = g & tt != 0
+                    u, v = (m[g ^ tt], m[g]) if up else (m[g], m[g ^ tt])
+                    i = g0 + g // (2 * tt)
+                    vw = _shoup64(v, w[i], w[n + i], t)
+                    new[g] = (u - vw) % t if up else (u + vw) % t
+                m = new
+                continue
+            for base in range(0, n, E):
+                for b in range(E // 2):
+                    gl, pos = b // tt, (b // tt) * 2 * tt + b % tt + base
+                    i = g0 + base // (2 * tt) + gl
+                    u, vw = m[pos], _shoup64(m[pos + tt], w[i], w[n + i], t)
+                    m[pos], m[pos + tt] = (u + vw) % t, (u - vw) % t
+        out[r] = [m[int(p)] == 0 for p in s2n[:length]]
+    return out
+
+
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8])
+@pytest.mark.parametrize("form,t", [("bfv", T32), ("bgv", T32), ("bgv", 65537),
+                                    ("bfv", PLAINTEXT_MODULI[48])],
+                         ids=["bfv", "bgv", "bgv_t65537", "bfv_48bit"])
+def test_kernel_tables_and_algorithm_mirror_plain(form, t, cluster):
+    """The decrypt kernel's tables and its algorithm, mirrored in Python
+    integers (the kernel itself runs only on the card), give the plain
+    version's zero mask with a row split over each cluster the kernel
+    picks: 1, 2, 4 and 8 blocks (n up to 2048, 4096, 8192, 16384 on up)."""
+    ctx = make_context(SchemeParams(ring_dim=256, plaintext_modulus=t, num_limbs=4,
+                                    scheme=form), seed=5, device="cpu")
+    sk, _ = ctx.keygen()
+    vals = np.random.default_rng(cluster).integers(0, 1000, size=(2, 256)).astype(object)
+    vals[:, ::5] = 0
+    ct = ctx.encrypt_sk(ctx.make_plaintext_rns(vals), sk)
+    dec = DeviceDecryptor(ctx)
+    phase = dec._phase(ct.data, sk.s_mont)
+    want = dec.zero_mask(ct.data, sk.s_mont, length=200).numpy()
+    np.testing.assert_array_equal(want, vals[:, :200] == 0)
+    assert dec.kernel_tables is None  # a CPU context launches no kernel
+    tables = decrypt_cuda.constants(*dec._kernel_inputs, "cpu")
+    got = _kernel_mirror(phase, tables, form == "bgv", 200, cluster)
+    np.testing.assert_array_equal(got, want)
+
+
+def test_kernel_tables_layout():
+    """The constants' layout the kernel reads (kHead, kLimbWords); the
+    wrapper refuses a CPU tensor."""
+    ctx, _, _, _ = _bgv_ct(T32, 3)
+    dec = DeviceDecryptor(ctx)
+    consts, psi, s2n = decrypt_cuda.constants(*dec._kernel_inputs, "cpu")
+    assert consts.dtype == torch.int64 and tuple(consts.shape) == (4 + 8 * 3,)
+    assert tuple(psi.shape) == (2 * 256,) and s2n.dtype == torch.int32
+    c = [int(v) for v in consts.numpy().view(np.uint64)]
+    q = int(np.prod([int(p) for p in ctx.q_primes], dtype=object))
+    assert c[:3] == [T32, q % T32, (q % T32 << 64) // T32]
+    assert [c[4 + 8 * i] for i in range(3)] == [int(p) for p in ctx.q_primes]
+    assert [c[7 + 8 * i] + (c[8 + 8 * i] << 64) for i in range(3)] == \
+        [(1 << 72) // int(p) for p in ctx.q_primes]
+    with pytest.raises(ValueError):
+        decrypt_cuda.zero_mask(torch.zeros((1, 3, 256), dtype=torch.int32), consts, psi, s2n,
+                               True, 256)
+
+
+@pytest.mark.parametrize("form,ship", [("bfv", 5), ("bfv", 3), ("bgv", 5), ("bgv", 4)])
+def test_result_zero_mask_on_cpu_is_the_host_decrypt(form, ship):
+    """On the CPU ``result_zero_mask`` (name, signature and return unchanged:
+    the benchmark harness swaps the module attribute) decrypts on the host
+    in the context of the result's limb count, with a noise estimate, and
+    keeps no device decryptor."""
+    import inspect
+
+    from nested_hashing_psi_tpu_torch.protocol import batched_fhe
+
+    assert list(inspect.signature(batched_fhe.result_zero_mask).parameters) == \
+        ["ctx", "result", "sk", "length", "decryptors"]
+    t = T32 if form == "bfv" else 65537
+    ctx = make_context(SchemeParams(ring_dim=256, plaintext_modulus=t, num_limbs=5,
+                                    scheme=form), seed=6, device="cpu")
+    sk, _ = ctx.keygen()
+    vals = np.random.default_rng(ship).integers(0, 1000, size=(3, 256)).astype(object)
+    vals[:, ::3] = 0
+    if form == "bgv":
+        ct = ctx.encrypt_sk(ctx.make_plaintext_rns(vals), sk)
+        while ct.data.shape[-2] > ship:
+            ct = ctx.context_for_limbs(ct.data.shape[-2]).mod_switch(ct)
+    else:
+        sctx, ssk = ctx.context_for_limbs(ship), ctx.shrink_key_to(sk, ship)
+        ct = sctx.encrypt_sk(sctx.make_plaintext_rns(vals), ssk)
+    decryptors = {}
+    mask, noise = batched_fhe.result_zero_mask(ctx, ct, sk, 100, decryptors)
+    assert isinstance(mask, np.ndarray) and mask.dtype == bool and mask.shape == (3, 100)
+    np.testing.assert_array_equal(mask, vals[:, :100] == 0)
+    host, want_noise = ctx.decrypt(ct, sk, length=100)
+    np.testing.assert_array_equal(mask, np.asarray(host, dtype=object) == 0)
+    assert noise == want_noise and noise is not None and not decryptors

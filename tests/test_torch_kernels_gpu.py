@@ -8,7 +8,8 @@ run them on a GPU machine with
 K1 (ops/ntt_cuda.py), K2 (ops/pie_kernels.py) and K3 (ops/ntt_mxu.py) must
 equal their plain versions bit for bit (integer residues: exact equality),
 and K3 must equal K1. The on-device decrypt must give the host decrypt's
-zero mask, ``mod_switch`` and ``automorphism`` on the card must equal the
+zero mask, and the decrypt kernel (BFV and BGV results) its plain
+version's; ``mod_switch`` and ``automorphism`` on the card must equal the
 port on the CPU, the streamed protocol, the host-resident table,
 ``--bgv`` and SimpleFHE must verify on the card, and so must the
 reference's three golden tests at ring 16384 (``torch_golden_cases``).
@@ -294,6 +295,152 @@ def test_device_decrypt_matches_host_decrypt(cuda):
     np.testing.assert_array_equal(slots, vals)
 
 
+# ---- the client's decrypt kernel (csrc/decrypt.cu, ops/decrypt_cuda.py) ----
+
+def _decrypt_case(cuda, form, t, n, L, rows, seed, ship=None):
+    """A context on the card (on ``ship`` limbs of an L-limb one), its key,
+    an encryption of seeded slot values (every fifth slot 0) and the
+    values."""
+    from nested_hashing_psi_tpu_torch.fhe.bfv import make_context
+    from nested_hashing_psi_tpu_torch.fhe.params import SchemeParams
+
+    ctx = make_context(SchemeParams(ring_dim=n, plaintext_modulus=t, num_limbs=L,
+                                    scheme=form), seed=seed, device=cuda)
+    sk, _ = ctx.keygen()
+    if ship is not None:
+        ctx, sk = ctx.context_for_limbs(ship), ctx.shrink_key_to(sk, ship)
+    vals = np.random.default_rng(seed).integers(0, min(t, 1 << 60), size=(rows, n))
+    vals = vals.astype(object) % t
+    vals[:, ::5] = 0
+    return ctx, sk, ctx.encrypt_sk(ctx.make_plaintext_rns(vals), sk), vals
+
+
+def _check_decrypt_kernel(ctx, sk, ct, vals, length):
+    """One launch; the kernel's mask equals the plain version's (the same
+    decryptor's two-plane arithmetic, on the card) and the host decrypt's,
+    bit for bit. -> the decryptor and its phase."""
+    from nested_hashing_psi_tpu_torch.fhe.device_decrypt import DeviceDecryptor
+    from nested_hashing_psi_tpu_torch.ops import decrypt_cuda
+
+    dec = DeviceDecryptor(ctx)
+    before = decrypt_cuda.launches
+    mask = dec.zero_mask(ct.data, sk.s_mont, length)
+    assert decrypt_cuda.launches == before + 1
+    lo, hi = dec._slot_planes(ct.data, sk.s_mont)
+    torch.cuda.synchronize()
+    assert mask.dtype == torch.bool and torch.equal(mask, ((lo == 0) & (hi == 0))[..., :length])
+    host, _ = ctx.decrypt(ct, sk, length=length)
+    np.testing.assert_array_equal(mask.cpu().numpy(), np.asarray(host, dtype=object) == 0)
+    np.testing.assert_array_equal(mask.cpu().numpy(), vals[:, :length] == 0)
+    return dec, dec._phase(ct.data, sk.s_mont)
+
+
+@pytest.mark.parametrize("form,L,ship", [("bfv", 6, 4), ("bgv", 9, None)],
+                         ids=["bfv_12x4x16384", "bgv_12x9x16384"])
+def test_decrypt_kernel_at_the_cells_shapes(cuda, form, L, ship):
+    """The cells' results: 12 rows of 16384 on BFV's 4 shipped limbs and on
+    flat BGV's 9, t = 2^32+2^20+2^19+1, each row split over a cluster of 8
+    blocks; a second launch gives the same mask."""
+    from nested_hashing_psi_tpu_torch.ops import decrypt_cuda
+
+    ctx, sk, ct, vals = _decrypt_case(cuda, form, T32, 16384, L, 12, seed=L, ship=ship)
+    assert tuple(ct.data.shape) == (12, 2, ship or L, 16384) and ct.form == form
+    dec, phase = _check_decrypt_kernel(ctx, sk, ct, vals, 4096)
+    want = decrypt_cuda.zero_mask(phase, *dec.kernel_tables, form == "bgv", 4096)
+    assert torch.equal(decrypt_cuda.zero_mask(phase, *dec.kernel_tables, form == "bgv", 4096),
+                       want)
+
+
+@pytest.mark.parametrize("n", [64, 256, 1024, 4096, 8192])
+@pytest.mark.parametrize("bits", [16, 32, 40, 48], ids=["t17", "t33", "t41", "t49"])
+@pytest.mark.parametrize("form", ["bfv", "bgv"])
+def test_decrypt_kernel_rings_and_moduli(cuda, form, bits, n):
+    """Rings 64-8192 (one block a row up to 2048, then clusters of 2 and 4)
+    and the plaintext moduli of 16-48-bit items (t of 17 to 49 bits), both
+    CRT fronts."""
+    from nested_hashing_psi_tpu_torch.fhe.params import PLAINTEXT_MODULI
+
+    t = PLAINTEXT_MODULI[bits]
+    ctx, sk, ct, vals = _decrypt_case(cuda, form, t, n, 4, 3, seed=bits + n)
+    _check_decrypt_kernel(ctx, sk, ct, vals, n // 2)
+
+
+@pytest.mark.parametrize("rows", [1, 5, 13])
+def test_decrypt_kernel_ragged_rows_and_unaligned_input(cuda, rows):
+    """Any row count; a phase that starts one int32 past a 16-byte boundary
+    is read in place (the kernel reads int32 words) and masks alike."""
+    from nested_hashing_psi_tpu_torch.ops import decrypt_cuda
+
+    ctx, sk, ct, vals = _decrypt_case(cuda, "bgv", T32, 1024, 3, rows, seed=rows)
+    dec, phase = _check_decrypt_kernel(ctx, sk, ct, vals, 1000)
+    buf = torch.empty(phase.numel() + 1, dtype=torch.int32, device=cuda)
+    shifted = buf[1:].view(phase.shape)
+    shifted.copy_(phase)
+    assert shifted.data_ptr() % 16 != 0
+    want = decrypt_cuda.zero_mask(phase, *dec.kernel_tables, True, 1000)
+    assert torch.equal(decrypt_cuda.zero_mask(shifted, *dec.kernel_tables, True, 1000), want)
+
+
+def test_decrypt_kernel_refusals_raise(cuda):
+    """What the wrapper does not take raises before any launch."""
+    from nested_hashing_psi_tpu_torch.ops import decrypt_cuda
+
+    ctx, sk, ct, vals = _decrypt_case(cuda, "bfv", T32, 256, 3, 2, seed=1)
+    dec, phase = _check_decrypt_kernel(ctx, sk, ct, vals, 256)
+    tb, before = dec.kernel_tables, decrypt_cuda.launches
+    with pytest.raises(ValueError):
+        decrypt_cuda.zero_mask(phase.cpu(), *tb, False, 256)
+    with pytest.raises(TypeError):
+        decrypt_cuda.zero_mask(phase.long(), *tb, False, 256)
+    with pytest.raises(ValueError):  # L does not fit the tables
+        decrypt_cuda.zero_mask(phase[:, :2].contiguous(), *tb, False, 256)
+    with pytest.raises(ValueError):  # n not a power of two
+        decrypt_cuda.zero_mask(phase[..., :96].contiguous(), tb[0], tb[1][:192], tb[2][:96],
+                               False, 96)
+    with pytest.raises(ValueError):
+        decrypt_cuda.zero_mask(phase, *tb, False, 257)
+    assert decrypt_cuda.launches == before
+
+
+def test_decrypt_kernel_no_rows_or_slots_launch_nothing(cuda):
+    """No rows or no slots: an empty mask, and ``launches`` stays."""
+    from nested_hashing_psi_tpu_torch.ops import decrypt_cuda
+
+    ctx, sk, ct, vals = _decrypt_case(cuda, "bgv", T32, 256, 3, 2, seed=2)
+    dec, phase = _check_decrypt_kernel(ctx, sk, ct, vals, 256)
+    before = decrypt_cuda.launches
+    got = decrypt_cuda.zero_mask(phase, *dec.kernel_tables, True, 0)
+    assert got.shape == (2, 0) and got.is_cuda
+    got = decrypt_cuda.zero_mask(phase[:0], *dec.kernel_tables, True, 256)
+    assert got.shape == (0, 256)
+    assert dec.zero_mask(ct.data, sk.s_mont, 0).shape == (2, 0)
+    assert decrypt_cuda.launches == before
+
+
+def test_bgv_client_exchange_decrypts_through_the_kernel(cuda):
+    """A --bgv client on the card: its exchange opens ``decrypt.device`` and
+    none of the host decrypt's spans, launches the decrypt kernel once per
+    result, keeps its decryptor by (form, limbs) and finds the intersection."""
+    from nested_hashing_psi_tpu_torch.ops import decrypt_cuda
+    from nested_hashing_psi_tpu_torch.protocol.runner import run_in_process
+    from nested_hashing_psi_tpu_torch.utils.profiling import TRACER
+
+    psi, ht = _small_protocol(bgv=True, num_limbs=None)
+    decrypt_cuda.reset_launches()
+    TRACER.clear()
+    TRACER.enable()
+    try:
+        client, server, ok = run_in_process(psi, ht, device="cuda")
+    finally:
+        TRACER.disable()
+    names = [s.name for s in TRACER.between(0, 2**63)]
+    TRACER.clear()
+    assert ok and len(client.intersection_calculated) == 5
+    assert names.count("decrypt.device") == decrypt_cuda.launches >= 1
+    assert not {"decrypt.crt", "decrypt.download", "decrypt.phase"} & set(names)
+    assert client.noise_bits is None and list(client._decryptors)[0][0] == "bgv"
+
+
 def _small_protocol(**over):
     from nested_hashing_psi_tpu_torch.config import HashTableParams, PSIParams
 
@@ -560,7 +707,7 @@ def test_automorphism_on_cuda_matches_cpu(cuda):
 @pytest.mark.parametrize("bits", [16, 32], ids=["leveled", "flat"])
 def test_bgv_protocol_on_cuda_small_ring(cuda, bits):
     """--bgv on the card: leveled at 16-bit items, flat at 32-bit; K1 and K2
-    launched, the client decrypts on the host, and the run verifies."""
+    launched, the client decrypts on the device, and the run verifies."""
     from nested_hashing_psi_tpu_torch.protocol.runner import run_in_process
 
     psi, ht = _small_protocol(bgv=True, bit_size=bits, num_limbs=None)
@@ -570,7 +717,7 @@ def test_bgv_protocol_on_cuda_small_ring(cuda, bits):
     assert ok and len(client.intersection_calculated) == 5
     assert server.pie.leveled == (bits == 16)
     assert min(ntt_cuda.launches.values()) > 0 and pie_kernels.launches == 1
-    assert client.noise_bits is not None and not client._decryptors
+    assert client.noise_bits is None and client._decryptors
 
 
 @pytest.mark.parametrize("bgv", [False, True], ids=["bfv", "bgv"])
