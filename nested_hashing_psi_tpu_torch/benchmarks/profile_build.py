@@ -5,82 +5,55 @@ Counterpart of ``benchmarks/profile_build.py``:
     python -m nested_hashing_psi_tpu_torch.benchmarks.profile_build [log2_items]
         [--simpleSize S] [--inner I] [--device cuda]
 
-  gen     -- RandomDataInput server-set generation
+  gen     -- RandomDataInput server-set generation (host)
   hash    -- tabulation hashing of every (item, simple hash function) pair
-  insert  -- HierarchicalCuckooHashTable.insert_all (includes hash), under
-             cProfile (its top functions by cumulative time are printed)
+             on the host (the reference's stage; the build hashes on the
+             device)
+  insert  -- the nested cuckoo insert on the device
+             (``hashing.device_build.insert_hierarchical``), read from its
+             ``build.insert`` span: seconds between two synchronises, the
+             device's time between its events, rounds and evictions
   encode  -- the whole BatchedFHEPIE build on the device at ring 16384 and
-             the client's L (depth shuffle, mask fold, packed encode, K1 on
-             each slab), split into PackedEncoder.encode (host NTT mod t),
-             PackedEncoder.to_rns (host), K1 (the slab NTTs, timed between
-             device synchronisations) and the rest.
+             the client's L (depth shuffle, mask fold, packed encode, K1),
+             read from its ``build.encode`` span, with its rows
 
-The default geometry is the JAX script's (Parameters1.txt row 24's 8022
-simple slots, inner tables scaled to the load; log2_items 22);
-``--simpleSize``/``--inner`` set the BatchedFHE rows' (the 2^20 main row:
-8022 and 12; the north star, bench_e2e_psi's: 4505 and 48).
-``NHPSI_RING_DIM`` overrides the ring, as in the CLI. ``main`` returns the
-stages' seconds.
+The spans are the ones the server's ``run_offline_phase`` opens and the
+benchmark's ``build_insert_s`` and ``build_encode_s`` read, so the tool and
+the cell read one split. The default geometry is the JAX script's
+(Parameters1.txt row 24's 8022 simple slots, inner tables scaled to the
+load; log2_items 22); ``--simpleSize``/``--inner`` set the BatchedFHE rows'
+(the 2^20 main row: 8022 and 12; the north star, bench_e2e_psi's: 4505 and
+48). ``NHPSI_RING_DIM`` overrides the ring, as in the CLI. ``main`` returns
+the stages' seconds.
 """
 
 from __future__ import annotations
 
 import argparse
-import contextlib
-import cProfile
-import io
 import json
 import os
-import pstats
 import time
-
-import torch
 
 from nested_hashing_psi_tpu_torch.data.input import RandomDataInput
 from nested_hashing_psi_tpu_torch.fhe.bfv import make_context
-from nested_hashing_psi_tpu_torch.fhe.bgv import BGVContext
-from nested_hashing_psi_tpu_torch.fhe.encoding import PackedEncoder
 from nested_hashing_psi_tpu_torch.fhe.params import (
     SchemeParams,
     bfv_batched_client_limbs,
     plaintext_modulus_for_bit_size,
 )
 from nested_hashing_psi_tpu_torch.hashing import HierarchicalCuckooHashTable, TabulationHashing
+from nested_hashing_psi_tpu_torch.hashing.device_build import insert_hierarchical
 from nested_hashing_psi_tpu_torch.ops import ntt_cuda
 from nested_hashing_psi_tpu_torch.pie.batched_fhe import BatchedFHEPIE
 from nested_hashing_psi_tpu_torch.protocol.batched_fhe import _sync, resolve_device
+from nested_hashing_psi_tpu_torch.utils.profiling import TRACER
 
 
-@contextlib.contextmanager
-def timed_methods(targets, device: torch.device, totals: dict[str, float]):
-    """Time every call of each (class, method name, label) in ``targets``
-    into ``totals[label]`` (the device synchronised before and after each
-    call); the methods are restored on exit."""
-    saved = [(cls, name, getattr(cls, name)) for cls, name, _ in targets]
-
-    def wrap(fn, label):
-        def run(*a, **kw):
-            _sync(device)
-            t0 = time.perf_counter()
-            out = fn(*a, **kw)
-            _sync(device)
-            totals[label] = totals.get(label, 0.0) + time.perf_counter() - t0
-            return out
-        return run
-
-    try:
-        for (cls, name, fn), (_, _, label) in zip(saved, targets):
-            setattr(cls, name, wrap(fn, label))
-        yield totals
-    finally:
-        for cls, name, fn in saved:
-            setattr(cls, name, fn)
-
-
-def _top(prof: cProfile.Profile, n: int) -> str:
-    out = io.StringIO()
-    pstats.Stats(prof, stream=out).sort_stats("cumulative").print_stats(n)
-    return out.getvalue()
+def last_span(name: str) -> dict:
+    """The last span ``name`` on the tracer: host seconds, device ms (None
+    without a card) and its counts."""
+    s = [x for x in TRACER.between(0, 2**63 - 1) if x.name == name][-1]
+    return {"s": (s.end_ns - s.start_ns) / 1e9, "device_ms": s.device_ms, **(s.counts or {})}
 
 
 def main(argv=None) -> dict:
@@ -118,14 +91,11 @@ def main(argv=None) -> dict:
         n_simple_hash_functions=2, n_cuckoo_hash_functions=H,
         max_items_per_position=inner, seed=7,
     )
-    prof = cProfile.Profile()
-    t0 = time.perf_counter()
-    prof.enable()
-    hct.insert_all(server)
-    prof.disable()
-    t_ins = time.perf_counter() - t0
-    print(f"insert_all: {t_ins:.3f}s ({2 * n / t_ins / 1e6:.2f} M pairs/s)", flush=True)
-    print(_top(prof, 14), flush=True)
+    insert_hierarchical(hct, server, device)
+    ins = last_span("build.insert")
+    print(f"insert (device): {ins['s']:.3f}s ({2 * n / ins['s'] / 1e6:.2f} M pairs/s), device "
+          f"events {ins['device_ms']} ms, {ins['rounds']} rounds, {ins['evictions']} evictions, "
+          f"{ins['attempts']} attempt(s)", flush=True)
 
     ctx = make_context(SchemeParams(ring_dim=ring, plaintext_modulus=t, num_limbs=L,
                                     scheme="bfv"), seed=1, device=device)
@@ -133,23 +103,17 @@ def main(argv=None) -> dict:
     rlk = ctx.relin_keygen(sk)
     _sync(device)
     ntt_cuda.reset_launches()
-    parts: dict[str, float] = {}
-    with timed_methods([(PackedEncoder, "encode", "packed_encode"),
-                        (PackedEncoder, "to_rns", "to_rns"),
-                        (BGVContext, "_ntt_fast", "k1")], device, parts):
-        t0 = time.perf_counter()
-        pie = BatchedFHEPIE(ctx, hct, rlk, mask_seed=1)
-        _sync(device)
-        t_enc = time.perf_counter() - t0
-    rows = pie.H * pie.D * pie.P
-    parts["rest"] = t_enc - sum(parts.values())
-    print(f"encode: {t_enc:.3f}s for {rows} table rows + {pie.D} mask rows, table "
-          f"{tuple(pie.table_pt.shape)} ({pie.table_pt.numel() * 4 / 1e9:.3f} GB); of which "
-          + ", ".join(f"{k} {v:.3f}s" for k, v in parts.items())
-          + f"; K1 launches {ntt_cuda.launches['ntt'] + ntt_cuda.launches['intt']}", flush=True)
+    pie = BatchedFHEPIE(ctx, hct, rlk, mask_seed=1)
+    enc = last_span("build.encode")
+    print(f"encode (device): {enc['s']:.3f}s for {enc['rows']} rows ({pie.D} of them masks), "
+          f"table {tuple(pie.table_pt.shape)} ({pie.table_pt.numel() * 4 / 1e9:.3f} GB), device "
+          f"events {enc['device_ms']} ms; K1 launches "
+          f"{ntt_cuda.launches['ntt'] + ntt_cuda.launches['intt']}", flush=True)
     out = {"log2_items": a.log2_items, "simple": simple, "inner": inner, "ring": ring, "L": L,
-           "device": str(device), "gen_s": t_gen, "hash_s": t_hash, "insert_s": t_ins,
-           "encode_s": t_enc, **{f"encode_{k}_s": v for k, v in parts.items()},
+           "device": str(device), "gen_s": t_gen, "hash_s": t_hash, "insert_s": ins["s"],
+           "insert_device_ms": ins["device_ms"], "rounds": ins["rounds"],
+           "evictions": ins["evictions"], "encode_s": enc["s"],
+           "encode_device_ms": enc["device_ms"], "rows": enc["rows"],
            "table_bytes": pie.table_pt.numel() * 4}
     print(f"[profile_build] {json.dumps(out)}", flush=True)
     return out

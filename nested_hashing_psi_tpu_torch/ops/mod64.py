@@ -2,7 +2,8 @@
 
 Counterpart of ``nested_hashing_psi_tpu.ops.mod64``: values in [0, t) are
 (lo, hi) pairs of 32-bit planes, and the operations are the ones the
-on-device decrypt needs -- modular add/sub and multiplication by
+on-device decrypt and the server's packed encode (``fhe.device_encode``)
+need -- modular add/sub, the forward and inverse NTT, and multiplication by
 PRECOMPUTED constants with a 64-bit Shoup reduction (for a constant w < t
 with wq = floor(w * 2**64 / t), q = floor(x * wq / 2**64) underestimates
 floor(x*w/t) by at most 1, so r = (x*w - q*t) mod 2**64 lies in [0, 2t)).
@@ -110,6 +111,16 @@ def shoup_mul2(x, w2, wq2, t2):
     return csub64(r0, r1, t2[0], t2[1])
 
 
+def shoup_quotient2(w, c2, cq2, tinv2, t2):
+    """Shoup quotients floor(w * 2**64 / t) of plane pairs w < t that are
+    not constants (t odd): r = w * 2**64 mod t is a Shoup product by the
+    constant c = 2**64 mod t (c2, cq2), and w * 2**64 - r = t * q exactly
+    with q < 2**64, so q = -r * t^-1 mod 2**64 (tinv2 = t^-1 mod 2**64)."""
+    r = shoup_mul2(w, c2, cq2, t2)
+    neg = sub64(torch.zeros_like(r[0]), torch.zeros_like(r[1]), r[0], r[1])
+    return mul64_lo(neg[0], neg[1], tinv2[0], tinv2[1])
+
+
 def planes_from_u64_np(x: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
     """Host: uint64/object array -> (lo, hi) uint32 arrays."""
     if x.dtype == object:
@@ -156,3 +167,29 @@ def ntt2_mod_t(x2, psi_rev_w, psi_rev_wq, t2):
         hi = torch.stack([a[1], b[1]], dim=-2)
         m *= 2
     return lo.reshape(*bshape, n), hi.reshape(*bshape, n)
+
+
+def intt2_mod_t(x2, ipsi_rev_w, ipsi_rev_wq, ninv2, ninvq2, t2):
+    """Inverse of ``ntt2_mod_t`` over plane pairs: the Gentleman-Sande
+    structure of the encoder's ``intt_numpy`` (bit-reversed -> natural),
+    twiddles the bit-reversed powers of psi^-1, then times n^-1 mod t
+    (ninv2, ninvq2: its planes and Shoup quotient)."""
+    lo, hi = x2
+    n = lo.shape[-1]
+    bshape = lo.shape[:-1]
+    m, tt = n, 1
+    while m > 1:
+        h = m // 2
+        lo = lo.reshape(*bshape, h, 2, tt)
+        hi = hi.reshape(*bshape, h, 2, tt)
+        s_w = (ipsi_rev_w[0][h : 2 * h][:, None], ipsi_rev_w[1][h : 2 * h][:, None])
+        s_wq = (ipsi_rev_wq[0][h : 2 * h][:, None], ipsi_rev_wq[1][h : 2 * h][:, None])
+        u = (lo[..., 0, :], hi[..., 0, :])
+        v = (lo[..., 1, :], hi[..., 1, :])
+        a = add2_mod(u, v, t2)
+        b = shoup_mul2(sub2_mod(u, v, t2), s_w, s_wq, t2)
+        lo = torch.stack([a[0], b[0]], dim=-2)
+        hi = torch.stack([a[1], b[1]], dim=-2)
+        tt *= 2
+        m = h
+    return shoup_mul2((lo.reshape(*bshape, n), hi.reshape(*bshape, n)), ninv2, ninvq2, t2)

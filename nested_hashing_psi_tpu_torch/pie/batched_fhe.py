@@ -22,7 +22,8 @@ multiplication, the result shipped on L - (H-1) limbs). The streamed upload
 
 Spans on ``utils.profiling.TRACER``, each with the device's time:
 ``pie.position_sum`` (every K2 call), ``pie.combine`` and inside it
-``scheme.mul_relin`` (every cross-hash multiply and relinearisation).
+``scheme.mul_relin`` (every cross-hash multiply and relinearisation), and,
+recorded always, ``build.encode`` (the packed table's build).
 """
 
 from __future__ import annotations
@@ -36,10 +37,11 @@ from torch import nn
 from nested_hashing_psi_tpu_torch.hashing.cuckoo import CuckooHashTable
 from nested_hashing_psi_tpu_torch.hashing.hierarchical import HierarchicalCuckooHashTable
 from nested_hashing_psi_tpu_torch.fhe.bgv import BGVContext, Ciphertext, RelinKey, SecretKey
+from nested_hashing_psi_tpu_torch.fhe.device_encode import DeviceEncoder
 from nested_hashing_psi_tpu_torch.fhe.params import bfv_mul_limbs, bfv_ship_limbs
 from nested_hashing_psi_tpu_torch.ops.modmath import add_mod, mont_mul
 from nested_hashing_psi_tpu_torch.ops.pie_kernels import indexed_inner_product
-from nested_hashing_psi_tpu_torch.utils.profiling import TRACER
+from nested_hashing_psi_tpu_torch.utils.profiling import TRACER, synced_span
 
 
 def _zero_slots(result_slots: np.ndarray) -> np.ndarray:
@@ -150,7 +152,10 @@ def combine_ip(
 class BatchedFHEPIE(nn.Module):
     """Server-side engine over the whole nested table. ``table_pt``,
     ``mask_pt`` and the relin key are buffers on the context's device;
-    ``forward(idx, minus)`` is the online step on ciphertext data.
+    ``forward(idx, minus)`` is the online step on ciphertext data. The
+    packed table is built on the context's device (``_encode``, span
+    ``build.encode``) from the nested table, a host array or the device
+    tensor ``hashing.device_build`` leaves.
 
     ``host_table=True`` keeps the packed table in host memory (pinned when
     the context is on a GPU) for tables beyond what the device should hold;
@@ -191,48 +196,63 @@ class BatchedFHEPIE(nn.Module):
             leveled, mul_limbs, ship_limbs, host_table,
         )
 
+        with synced_span("build.encode", ctx.device) as span:
+            self._encode(ctx, hct.table, mask_seed, host_table, encode_slab)
+            span.counts = {"rows": self.H * self.D * self.P + self.D}
+
+    def _encode(self, ctx, table, mask_seed, host_table: bool, encode_slab: int) -> None:
+        """The packed table and masks on the context's device from the
+        nested table (S, O, H, D, P, 2) of uint64 words (a host array or an
+        int64 tensor of any device): the depth shuffle and the masks drawn
+        on the host from one Philox stream (the same ``mask_seed`` gives
+        the JAX package's table bit for bit), then the permutation gather,
+        the mask fold into hash 0's slots and the packed encode
+        (``DeviceEncoder``) on the device, in slabs of ``encode_slab``
+        rows."""
+        dev = ctx.device
         rng = np.random.Generator(
             np.random.Philox(
                 key=np.random.SeedSequence().entropy if mask_seed is None else mask_seed
             )
         )
+        if isinstance(table, np.ndarray):
+            table = torch.from_numpy(np.ascontiguousarray(table, dtype=np.uint64).view(np.int64))
+        table = table.to(dev)
         # shuffle depth rows per (outer cell, inner table) to hide which
-        # depth matched; numpy Philox draws, so the same mask_seed gives the
-        # JAX package's table bit for bit
-        table = hct.table
+        # depth matched
         S, O = table.shape[0], table.shape[1]
         perm = np.argsort(rng.random((S, O, self.H, self.D)), axis=-1)
-        if table[..., 1].any():
+        if bool(table[..., 1].any()):
             raise ValueError("FHE paths support items below 64 bits only")
-        vals = np.take_along_axis(table[..., 0], perm[..., None], axis=3)
+        perm = torch.from_numpy(perm).to(dev)[..., None].expand(*perm.shape, self.P)
+        # -> slot-major rows (h, d, p) of batch = S*O slots
+        slots = torch.gather(table[..., 0], 3, perm).permute(2, 3, 4, 0, 1).reshape(
+            self.H * self.D * self.P, S * O)
         del perm
-        # -> slot-major (H, D, P, batch = S*O)
-        slots = np.ascontiguousarray(vals.transpose(2, 3, 4, 0, 1)).reshape(
-            self.H, self.D, self.P, -1
-        )
-        del vals
 
         # per-depth random nonzero masks, folded into hash 0's table slots
-        mask_vals = rng.integers(1, ctx.t, size=(self.D, self.batch_slots))
-        t_obj = int(ctx.t)
-        mask_obj = mask_vals.astype(object)
-        self.register_buffer("mask_pt", ctx.make_plaintext_mont(mask_obj))
+        enc = DeviceEncoder(ctx)
+        mask = enc.reduce(
+            torch.from_numpy(rng.integers(1, ctx.t, size=(self.D, self.batch_slots))).to(dev))
+        mask_q = enc.quotient(mask)
+        self.register_buffer("mask_pt", enc.plaintext_mont(mask))
 
-        # packed encode on the host in bounded slabs; each slab's NTT is K1
-        flat = slots.reshape(self.H * self.D * self.P, self.batch_slots)
-        DP = self.D * self.P
+        DP, rows = self.D * self.P, self.H * self.D * self.P
         if host_table:
             host = _position_major_storage(self.H, self.D, self.P, ctx)
         slabs = []
-        for s in range(0, flat.shape[0], encode_slab):
-            chunk = flat[s : s + encode_slab].astype(object)
-            # row r -> (h, d, p); h == 0 iff r < D*P
-            for r in range(s, min(s + len(chunk), DP)):
-                chunk[r - s] = chunk[r - s] * mask_obj[r // self.P] % t_obj
-            pt = ctx.make_plaintext_mont(chunk)
+        # slabs never straddle hash 0's rows (r < D*P, masked) and the rest
+        for s in [*range(0, DP, encode_slab), *range(DP, rows, encode_slab)]:
+            e = min(s + encode_slab, DP if s < DP else rows)
+            if s < DP:
+                d = torch.arange(s, e, device=dev) // self.P
+                vals = enc.fold(slots[s:e], [m[d] for m in mask], [q[d] for q in mask_q])
+            else:
+                vals = enc.reduce(slots[s:e])
+            pt = enc.plaintext_mont(vals)
             if host_table:
-                rows = torch.arange(s, s + len(chunk))
-                host[rows % self.P, rows // self.P] = pt.cpu()
+                r = torch.arange(s, e)
+                host[r % self.P, r // self.P] = pt.cpu()
             else:
                 slabs.append(pt)
         if host_table:

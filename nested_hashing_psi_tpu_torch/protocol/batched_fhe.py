@@ -12,7 +12,10 @@ host. ``--bgv`` runs the leveled PIE when t fits the device's
 mod-t arithmetic (16-bit items) and the flat product otherwise.
 ``--streamChunks`` sends the index ciphertexts in chunks that the server
 position-sums as they arrive, and a packed table above 5 GB stays in host
-memory (``BatchedFHEPIE(host_table=True)``).
+memory (``BatchedFHEPIE(host_table=True)``). The server builds its nested
+cuckoo table and its packed table on its own device. Constructing either
+party sets the process's host allocator to keep the frames' freed memory
+mapped (``utils.host_heap``).
 
 Each party's online phase is a span on ``utils.profiling.TRACER``
 (``client.exchange``, ``server.exchange``, numbered by the party's own
@@ -20,6 +23,8 @@ count of online phases), holding its frames (``wire.pack``,
 ``wire.unpack``, ``convert.send``/``receive``), the server's step
 (``server.step``, the lines ``online_computation_us`` times) and the
 client's decrypt (``client.decrypt``) and extraction (``client.extract``).
+The server's offline phase is ``server.offline``, holding ``build.insert``
+and ``build.encode``: recorded always, each timed between two synchronises.
 """
 
 from __future__ import annotations
@@ -35,6 +40,7 @@ from nested_hashing_psi_tpu_torch.hashing import (
     HierarchicalCuckooHashTable,
     TabulationHashing,
 )
+from nested_hashing_psi_tpu_torch.hashing.device_build import insert_hierarchical
 from nested_hashing_psi_tpu_torch.protocol.base import PSIClientBase, PSIServerBase
 from nested_hashing_psi_tpu_torch.protocol.channel import Channel
 from nested_hashing_psi_tpu_torch.convert import receive, send
@@ -53,7 +59,8 @@ from nested_hashing_psi_tpu_torch.pie.batched_fhe import (
     BatchedFHEClientOps,
     BatchedFHEPIE,
 )
-from nested_hashing_psi_tpu_torch.utils.profiling import TRACER
+from nested_hashing_psi_tpu_torch.utils.host_heap import keep_freed_host_memory
+from nested_hashing_psi_tpu_torch.utils.profiling import TRACER, synced_span
 
 PROTOCOL_NAME = "BatchedFHE"
 HOST_TABLE_BYTES = 5 << 30  # above this the reference keeps the table on the host
@@ -134,6 +141,7 @@ class BatchedFHEPSIClient(PSIClientBase):
         super().__init__(data, params, channel, PROTOCOL_NAME, **kw)
         self.ht = ht
         self.device = resolve_device(device)
+        keep_freed_host_memory()
         self._decryptors: dict[tuple[str, int], DeviceDecryptor] = {}
 
     def run_setup_phase(self) -> None:
@@ -236,6 +244,7 @@ class BatchedFHEPSIServer(PSIServerBase):
         super().__init__(data, params, channel, PROTOCOL_NAME, **kw)
         self.ht = ht
         self.device = resolve_device(device)
+        keep_freed_host_memory()
 
     def run_setup_phase(self) -> None:
         p, ht = self.params, self.ht
@@ -258,20 +267,24 @@ class BatchedFHEPSIServer(PSIServerBase):
         )
 
     def run_offline_phase(self) -> None:
-        begin = time.monotonic_ns()
-        self.server_table.insert_all(self.server_set)
-        ht, ctx = self.ht, self.ctx
-        table_bytes = (
-            ht.n_cuckoo_hash_functions * ht.max_items_per_position
-            * ht.each_cuckoo_table_size * ctx.L * ctx.n * 4
-        )
-        self.pie = BatchedFHEPIE(
-            ctx, self.server_table, self.rlk,
-            leveled=leveled_default(ctx.params.scheme, ctx.t, ht.n_cuckoo_hash_functions),
-            host_table=table_bytes > HOST_TABLE_BYTES,
-        )
-        _sync(self.device)
-        self.offline_computation_us = (time.monotonic_ns() - begin) // 1000
+        """The server's build on its own device: the nested cuckoo table
+        (``hashing.device_build``, span ``build.insert``), then the packed
+        table and masks (``BatchedFHEPIE``, span ``build.encode``), all in
+        span ``server.offline``, whose host time is
+        ``offline_computation_us``."""
+        with synced_span("server.offline", self.device) as span:
+            insert_hierarchical(self.server_table, self.server_set, self.device)
+            ht, ctx = self.ht, self.ctx
+            table_bytes = (
+                ht.n_cuckoo_hash_functions * ht.max_items_per_position
+                * ht.each_cuckoo_table_size * ctx.L * ctx.n * 4
+            )
+            self.pie = BatchedFHEPIE(
+                ctx, self.server_table, self.rlk,
+                leveled=leveled_default(ctx.params.scheme, ctx.t, ht.n_cuckoo_hash_functions),
+                host_table=table_bytes > HOST_TABLE_BYTES,
+            )
+        self.offline_computation_us = span.duration_us
 
     def run_online_phase(self) -> None:
         self.exchanges += 1

@@ -58,7 +58,7 @@ def tensor_to_bytes(arr: np.ndarray) -> bytes:
     header = struct.pack("<4sB", _MAGIC, len(dt)) + dt
     header += struct.pack("<B", arr.ndim)
     header += struct.pack(f"<{arr.ndim}q", *arr.shape)
-    return header + arr.tobytes()
+    return b"".join((header, arr.reshape(-1).view(np.uint8)))  # one copy of the payload
 
 
 def tensor_from_bytes(buf: bytes) -> np.ndarray:

@@ -23,6 +23,13 @@ use) also records a pair of timing events on the current stream;
 ``device_ms`` is their elapsed time, resolved when the spans are read
 (``between``), never while they are recorded. No span emits a
 ``record_function`` range.
+
+``synced_span`` opens a span that is recorded whether or not the tracer
+records, with the device synchronised at both ends so that its host time
+holds the device work issued inside it: the server's offline build
+(``server.offline``, ``build.insert``, ``build.encode``) runs once, in
+set-up, outside any traced stretch. Such a span carries its ``counts``
+(e.g. the insert's rounds and evictions).
 """
 
 from __future__ import annotations
@@ -51,6 +58,7 @@ class Span:
     thread: str | None = None
     nbytes: int | None = None
     device_ms: float | None = None
+    counts: dict | None = None
 
     @property
     def duration_us(self) -> int:
@@ -164,6 +172,23 @@ class Profiler:
 
 
 TRACER = Profiler(enabled=False)
+
+
+def _synchronize(device) -> None:
+    if getattr(device, "type", None) == "cuda":
+        torch.cuda.synchronize(device)
+
+
+@contextlib.contextmanager
+def synced_span(name: str, device):
+    """A span on ``TRACER`` recorded whether or not it records, timed on
+    the host clock between two synchronises of ``device`` (a
+    ``torch.device``), with the device's events beside it. Yields the
+    span, whose ``counts`` the block may set."""
+    _synchronize(device)
+    with _Open(TRACER, name, None, device) as span:
+        yield span
+        _synchronize(device)
 
 _ANCHOR_OP = "aten::empty"  # the op device_trace issues first, to align the clocks
 

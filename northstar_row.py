@@ -17,8 +17,10 @@ bench_e2e_psi derives), bit-exact intersection.
    kernels, busy share), and K2 at the row's shape through its wrapper
    beside its bound (chip_smoke.k2_bound) and its plain version, which it
    must equal (the plain version run in depth slices);
-4. profile_build's split of the offline build at this row and at the 2^20
-   main row (-e 8022 -E 12 -b 12).
+4. profile_build's split of the offline build on the card at this row and
+   at the 2^20 main row (-e 8022 -E 12 -b 12), read from the build's own
+   spans (``build.insert``, ``build.encode``), the split the benchmark's
+   cell reads.
 
 Every time is printed beside the card's name and power limit and the host
 CPU, and a JSON line at the end holds them all. It fails (exit 1) on any

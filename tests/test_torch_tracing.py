@@ -1,5 +1,6 @@
-"""The port's tracer (``utils/profiling.py``): off, it keeps nothing and
-reads no clock; on (``enable()`` or a torch.profiler session), a CPU
+"""The port's tracer (``utils/profiling.py``): off, a whole run keeps
+nothing and reads no clock but for the server's offline build, whose spans
+are recorded always; on (``enable()`` or a torch.profiler session), a CPU
 loopback BatchedFHE exchange at ring 128 records every span the protocol,
 wire, PIE and scheme layers open, nested as they are called, in each
 party's thread, numbered by the party's online phase; ``between`` clips;
@@ -10,6 +11,7 @@ import contextlib
 import itertools
 import json
 import os
+import sys
 import threading
 import time
 
@@ -117,13 +119,24 @@ def exchange_run(scheme: str, on_from: int | None, switch_on):
 
 @pytest.mark.parametrize("scheme", ["bfv", "bgv"])
 def test_off_keeps_nothing_and_reads_no_clock(tracer, monkeypatch, scheme):
-    def no_clock():
-        raise AssertionError("an off span read the clock")
+    """Off, set-up, the offline phases and the online phases keep nothing
+    and read no clock, but for the server's offline build, whose three
+    spans are recorded always: only ``synced_span`` may read the clock."""
+    synced = profiling.synced_span.__wrapped__.__code__
+    clock = time.time_ns
 
-    monkeypatch.setattr(time, "time_ns", no_clock)
+    def build_clock():
+        frame = sys._getframe(1)
+        while frame is not None and frame.f_code is not synced:
+            frame = frame.f_back
+        if frame is None:
+            raise AssertionError("an off span read the clock")
+        return clock()
+
+    monkeypatch.setattr(time, "time_ns", build_clock)
     client, _ = exchange_run(scheme, None, enabled)
     assert client.exchanges == EXCHANGES
-    assert tracer.spans == []
+    assert [s.name for s in tracer.spans] == ["build.insert", "build.encode", "server.offline"]
 
 
 def _within(inner, outer) -> bool:
