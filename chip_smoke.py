@@ -122,6 +122,13 @@
    batched one K2 too); then ``BasisExtension`` at the main path's q ->
    aux, bit-exact with an exact CRT on sampled coefficients, its lazy
    variant within [0, L) q, timed beside ``extend_q_to_aux``.
+12. [hps] (run after 10): BFV's HPS kernels (csrc/hps.cu) at both BFV
+   cells' shapes (D = 12 and 48, L = 6 rescaled to 5, aux 8, the ship
+   rescale 5 -> 4) and the full basis' (6 limbs, aux 9): the rescale with
+   the extension, the tensor products, scale-and-round with the return to
+   q, each bit-exact with its plain version on the CPU, timed beside its
+   bound and the plain version's time on the card. The three BFV main runs
+   (2) must each have launched them; the traced steps count them as HPS.
 11. [multihost] (run after 8): the port's scaling report in its
    multi-process mode (``benchmarks/scaling_report.py --num-processes 2``),
    two processes launched on their own (``tests/torch_processes.py``), joined at
@@ -807,6 +814,123 @@ def goldens_phase(smi_line: str) -> dict:
     return out
 
 
+HPS_DEPTHS = (12, 48)  # the BFV cells' depths: the 2^20 x 2048 row and the north star
+HPS_T = (1 << 32) + (1 << 20) + (1 << 19) + 1  # the cells' plaintext modulus
+
+
+def hps_phase(smi_line: str, depths=HPS_DEPTHS) -> dict:
+    """[hps]: BFV's HPS kernels (csrc/hps.cu, ops/hps_cuda.py) at both BFV
+    cells' shapes (ring 16384, L = 6 rescaled to 5 limbs, aux 8, the result
+    shipped on 4; D depths of two operands) and at the full basis' (6 limbs,
+    aux 9, D = 12): each call must launch one kernel and equal its plain
+    version run on the CPU bit for bit; then its device time (CUDA events
+    over 20 calls replayed from a CUDA graph) beside its bound
+    (benchmarks/card.py), the wrapper's pace (20 calls back to back) and the
+    plain version's time on the card. -> {"<kernel>_<shape>": {...}}"""
+    import numpy as np
+    import torch
+
+    from nested_hashing_psi_tpu_torch.benchmarks.card import (
+        hps_rescale_extend_bound,
+        hps_scale_exact_bound,
+        hps_tensor_bound,
+    )
+    from nested_hashing_psi_tpu_torch.benchmarks.timing import graph_ms, time_ms
+    from nested_hashing_psi_tpu_torch.fhe.bgv import tensor_product
+    from nested_hashing_psi_tpu_torch.ops import hps_cuda
+    from nested_hashing_psi_tpu_torch.ops.basis import BFVMulConverter, RNSRescale
+    from nested_hashing_psi_tpu_torch.ops.modmath import mont_constants
+    from nested_hashing_psi_tpu_torch.ops.primes import ntt_primes
+
+    N = 16384
+    q = list(ntt_primes(6, 31, 2 * N, avoid=(HPS_T,)))
+    rng = np.random.default_rng(22)
+    out = {}
+
+    def res(shape, primes):
+        p = np.array(primes, np.int64).reshape(len(primes), 1)
+        return torch.from_numpy((rng.integers(0, 1 << 62, size=shape) % p).astype(np.int32))
+
+    def mont(ps, device):
+        cols = [torch.tensor(c, dtype=torch.int64, device=device).reshape(-1, 1)
+                for c in zip(*[(p, *mont_constants(p)) for p in ps])]
+        return cols  # p, pinv, r2
+
+    def check(name, label, kernel, plain_cpu, plain_card, bound):
+        before = hps_cuda.launches
+        got = kernel()
+        torch.cuda.synchronize()
+        if hps_cuda.launches != before + 1:
+            fail(f"[hps] {name} {label} launched {hps_cuda.launches - before} kernels")
+        got = got if isinstance(got, tuple) else (got,)
+        want = plain_cpu()
+        want = want if isinstance(want, tuple) else (want,)
+        for g, w in zip(got, want):
+            if not torch.equal(g.cpu(), w):
+                bad = int((g.cpu() != w).sum())
+                fail(f"[hps] {name} {label} differs from its plain version at {bad} residues")
+        del got, want
+        ms = graph_ms(kernel, CUDA, 20)
+        wrapper_ms = time_ms(kernel, CUDA, 20)
+        plain_ms = time_ms(plain_card, CUDA, 3)
+        b_ms, b_by = bound
+        out[f"{name}_{label}"] = {"ms": ms, "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
+                                  "bound_ms": b_ms, "bound_by": b_by, "share": b_ms / ms}
+        print(f"[hps] {name} {label}: bit-exact with the plain version on the CPU; "
+              f"{ms:.4f} ms from a CUDA graph (the wrapper's pace {wrapper_ms:.4f}), bound "
+              f"{b_ms:.4f} ms ({b_by}), share {b_ms / ms:.3f}; plain on the card "
+              f"{plain_ms:.3f} ms ({plain_ms / ms:.0f}x) | {smi_line}", flush=True)
+        torch.cuda.empty_cache()
+
+    t_phase = time.perf_counter()
+    for L, mul, D in [(6, 5, D) for D in depths] + [(6, 6, 12)]:
+        label = f"D{D}_L{L}" + (f"to{mul}" if mul < L else "")
+        mc = BFVMulConverter(q[:mul], HPS_T, N)
+        aux, KA = list(mc.aux_primes), mc.K + 1
+        if mul < L:
+            rs = RNSRescale(q, L - mul)
+            x = res((2, D, 2, L, N), q)
+            xg = x.to(CUDA)
+            check("rescale_extend", label, lambda: rs.rescale_extend(xg, mc.q_to_aux),
+                  lambda: rs.rescale_extend(x, mc.q_to_aux),
+                  lambda: mc.q_to_aux.convert_plain(rs.rescale_plain(xg)),
+                  hps_rescale_extend_bound(4 * D, N, L, mul, KA))
+            ship = RNSRescale(q[:mul], 1)
+            s = res((D, 2, mul, N), q[:mul])
+            sg = s.to(CUDA)
+            check("ship_rescale", f"D{D}_L{mul}to{mul - 1}", lambda: ship.rescale(sg),
+                  lambda: ship.rescale(s), lambda: ship.rescale_plain(sg),
+                  hps_rescale_extend_bound(2 * D, N, mul, mul - 1, 0))
+            del x, xg, s, sg
+        else:
+            x = res((2, D, 2, L, N), q)
+            xg = x.to(CUDA)
+            check("extension", label, lambda: mc.extend_q_to_aux(xg),
+                  lambda: mc.extend_q_to_aux(x), lambda: mc.q_to_aux.convert_plain(xg),
+                  hps_rescale_extend_bound(4 * D, N, L, 0, KA))
+            del x, xg
+        a, b = res((D, 2, mul, N), q[:mul]), res((D, 2, mul, N), q[:mul])
+        ea, eb = res((D, 2, KA, N), aux), res((D, 2, KA, N), aux)
+        ag, bg, eag, ebg = (t.to(CUDA) for t in (a, b, ea, eb))
+        mq, ma, mqg, mag = mont(q[:mul], "cpu"), mont(aux, "cpu"), mont(q[:mul], CUDA), \
+            mont(aux, CUDA)
+        check("tensor", label, lambda: hps_cuda.tensor_products(ag, bg, eag, ebg, mc),
+              lambda: (tensor_product(a, b, *mq), tensor_product(ea, eb, *ma)),
+              lambda: (tensor_product(ag, bg, *mqg), tensor_product(eag, ebg, *mag)),
+              hps_tensor_bound(D, N, mul, KA))
+        del a, b, ea, eb, ag, bg, eag, ebg
+        d_q, d_aux = res((D, 3, mul, N), q[:mul]), res((D, 3, KA, N), aux)
+        dqg, dag = d_q.to(CUDA), d_aux.to(CUDA)
+        check("scale_exact", label, lambda: mc.scale_round_to_q(dqg, dag),
+              lambda: mc.scale_round_to_q(d_q, d_aux),
+              lambda: mc.exact_to_q_plain(mc.scale_round_plain(dqg, dag)),
+              hps_scale_exact_bound(3 * D, N, mul, KA))
+        del d_q, d_aux, dqg, dag
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"[hps] phase {out['phase_s']:.2f} s", flush=True)
+    return out
+
+
 def decrypt_check(label: str, ctx, sk, result, length: int) -> dict:
     """The decrypt kernel on one result (its own form, leading shape and
     shipped limbs, decrypted in the context of its limb count): its mask
@@ -880,6 +1004,9 @@ def compare(name, kernel_fn, plain_fn, iters=20, plain_iters=3):
     return err, ms, plain_ms
 
 
+HPS_KERNELS = ("rescale_extend_kernel", "tensor_kernel", "scale_exact_kernel")  # csrc/hps.cu
+
+
 def trace_online(step, timed: int = 20, traced: int = 10, warm: int = 3) -> dict:
     """Steady-state online step of one query (step()): host-clock ms over
     `timed` queries (after `warm` warm-ups), then a torch.profiler trace of
@@ -908,12 +1035,13 @@ def trace_online(step, timed: int = 20, traced: int = 10, warm: int = 3) -> dict
     kernels = [e for e in events if e.get("cat") == "kernel" and "dur" in e]
     if not kernels:
         fail("the profiler recorded no kernel on the device")
-    groups = {"K1": [0.0, 0], "K2": [0.0, 0], "plain": [0.0, 0]}
+    groups = {"K1": [0.0, 0], "K2": [0.0, 0], "HPS": [0.0, 0], "plain": [0.0, 0]}
     k1_kernels = {}  # K1 by kernel instance <log2 n, window's low bit, width>
     for e in kernels:
         name = e["name"]
         g = ("K1" if "ntt_fwd" in name or "ntt_inv" in name
-             else "K2" if "pie_ip" in name else "plain")
+             else "K2" if "pie_ip" in name
+             else "HPS" if any(k in name for k in HPS_KERNELS) else "plain")
         groups[g][0] += e["dur"] / 1e3
         groups[g][1] += 1
         if g == "K1":
@@ -1167,6 +1295,7 @@ def main() -> None:
         from nested_hashing_psi_tpu_torch.ops import (
             cuda_lib,
             decrypt_cuda,
+            hps_cuda,
             ntt_cuda,
             ntt_mxu,
             pie_kernels,
@@ -1549,6 +1678,7 @@ def main() -> None:
 
     # ---- the main path: three protocol runs ----------------------------
     launches, runs = {"ntt_fwd": 0, "ntt_inv": 0, "pie_ip": 0, "decrypt_mask": 0}, {}
+    hps_launches = {}  # the HPS kernels (csrc/hps.cu) each run launched
 
     def drive(label, flags):
         """One protocol run through the user entry points, the launch counts
@@ -1557,6 +1687,7 @@ def main() -> None:
         ntt_cuda.reset_launches()
         pie_kernels.reset_launches()
         decrypt_cuda.reset_launches()
+        hps_cuda.reset_launches()
         torch.cuda.reset_peak_memory_stats()
         psi, ht, device = cli.parse_args(flags)
         t0 = time.perf_counter()
@@ -1580,11 +1711,12 @@ def main() -> None:
               f"{server.offline_computation_us / 1e6:.3f} s online "
               f"{server.online_computation_us / 1e3:.3f} ms = "
               f"{server.online_computation_us / 1e3 / Q:.3f} ms/query | launches {got} "
-              f"| peak device memory {peak:.3f} GiB", flush=True)
+              f"hps {hps_cuda.launches} | peak device memory {peak:.3f} GiB", flush=True)
         if not ok or found != psi.intersection_set_size:
             fail(f"main path ({label}) did not verify: ok={ok} found={found}")
         for k in launches:
             launches[k] += got[k]
+        hps_launches[label] = hps_cuda.launches
         runs[label] = (client, server)
         return client, server, got
 
@@ -1594,6 +1726,8 @@ def main() -> None:
             fail(f"main path ({label}) found {len(client.intersection_calculated)}")
         if min(got.values()) <= 0:
             fail(f"the main path ({label}) did not launch every kernel: {got}")
+        if hps_launches[label] <= 0:
+            fail(f"BFV's main path ({label}) did not launch the HPS kernels")
         if not client._decryptors:
             fail(f"the client ({label}) did not decrypt on the device")
     print(f"[main] kernel launches over the three runs {launches}", flush=True)
@@ -1607,13 +1741,14 @@ def main() -> None:
                               timed, n_traced, warm)
         else:
             tr = trace_online(lambda: server.pie.run(client.idx_ct), timed, n_traced, warm)
-        device_ms = sum(tr[f"{g}_ms_per_query"] for g in ("K1", "K2", "plain"))
+        device_ms = sum(tr[f"{g}_ms_per_query"] for g in ("K1", "K2", "HPS", "plain"))
         print(f"[trace] {label}: online step, one query, steady state: wall median "
               f"{tr['wall_ms_median']:.3f} ms (min {tr['wall_ms_min']:.3f}, max "
               f"{tr['wall_ms_max']:.3f}) over {timed} queries; traced {n_traced}: device "
               f"{device_ms:.3f} ms/query, K1 {tr['K1_ms_per_query']:.4f} ms/query "
               f"({tr['K1_launches_per_query']:.0f} launches{k1_bound_note}), K2 "
               f"{tr['K2_ms_per_query']:.4f} ms/query ({tr['K2_launches_per_query']:.0f}), "
+              f"HPS {tr['HPS_ms_per_query']:.4f} ms/query ({tr['HPS_launches_per_query']:.0f}), "
               f"plain PyTorch {tr['plain_ms_per_query']:.3f} ms/query "
               f"({tr['plain_launches_per_query']:.0f}); busy share {tr['busy_share']:.3f}",
               flush=True)
@@ -1716,6 +1851,9 @@ def main() -> None:
 
     # ---- [goldens]: the reference's golden tests at ring 16384 -----------
     golden_times = goldens_phase(smi_line)
+
+    # ---- [hps]: BFV's HPS kernels at the BFV cells' shapes ---------------
+    hps_times = hps_phase(smi_line)
 
     # ---- [bench]: the port's bench and eval tools at full size -----------
     bench_out = bench_phase_fresh(smi_line)
@@ -1859,6 +1997,10 @@ def main() -> None:
                 "variant": main_v, **fields, "k1_max_abs_err": run["k1_max_abs_err"],
                 "k1_ms": run["k1_ms"], "k1_limb_transforms_s": run["k1_transforms_per_s"], **extra}
 
+    kernels.append({"name": "hps", "route": "cuda", "source": f"{csrc}/hps.cu",
+                    "replaces": None, "launches": sum(hps_launches.values()),
+                    "library_ms": None, **{k: v for k, v in hps_times.items()
+                                           if k != "phase_s"}})
     kernels.append(probe_entry("probe_ntt_lazy", "probe_ntt_lazy.cu",
                                "benchmarks/bench_ntt_lazy_probe.py:142", "exact",
                                ("lazy", "lazy_ps"), probe_runs["lazy"]))
@@ -1871,6 +2013,7 @@ def main() -> None:
     print(f"[elgamal] times {json.dumps(elgamal_times)}", flush=True)
     print(f"[checkpoint] times {json.dumps(checkpoint_times)}", flush=True)
     print(f"[goldens] times {json.dumps(golden_times)}", flush=True)
+    print(f"[hps] phase {hps_times['phase_s']:.2f} s", flush=True)
     print(f"[parallel] times {json.dumps({k: v for k, v in parallel.items() if k != 'launches'})}",
           flush=True)
     print(f"[multihost] times {json.dumps(multihost)}", flush=True)

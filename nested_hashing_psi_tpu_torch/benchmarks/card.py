@@ -90,6 +90,42 @@ def k3_bound(rows: int, L: int, n: int, m1: int, digits: int) -> tuple[float, st
     return bound(2 * macs, INT8_OPS_S, rows * n * 8 + table_bytes)
 
 
+# The HPS kernels' products (csrc/hps.cu), in slots of the FMA pipe: a
+# 32-bit Shoup product is IMAD.HI, IMAD, IMAD; a Montgomery product a wide
+# IMAD (two slots), IMAD and IMAD.HI.
+SHOUP32_SLOTS = 3
+MONT32_SLOTS = 4
+
+
+def hps_rescale_extend_bound(rows: int, n: int, L: int, Lk: int, KA: int) -> tuple[float, str]:
+    """hps.cu's rescale + extension on rows x n coefficients of L limbs:
+    the rescale to Lk limbs (Lk = 0: none, the extension reads the L limbs)
+    and the extension to KA aux limbs (KA = 0: none); each input limb read
+    once, each output limb (the Lk and the KA) written once."""
+    src, products = (Lk, (L - Lk) * (1 + Lk) + 2 * Lk) if Lk else (L, 0)
+    if KA:
+        products += src * (1 + KA) + KA
+    return bound(rows * n * products * SHOUP32_SLOTS, FMA_SLOTS_S,
+                 rows * n * 4 * (L + Lk + KA))
+
+
+def hps_tensor_bound(rows: int, n: int, Lq: int, KA: int) -> tuple[float, str]:
+    """hps.cu's tensor products: rows ciphertext pairs over Lq + KA limbs,
+    four words read and three written a coefficient and limb, five
+    Montgomery products."""
+    return bound(rows * n * (Lq + KA) * 5 * MONT32_SLOTS, FMA_SLOTS_S,
+                 rows * n * (Lq + KA) * 7 * 4)
+
+
+def hps_scale_exact_bound(rows: int, n: int, Lq: int, KA: int) -> tuple[float, str]:
+    """hps.cu's scale-and-round + exact return to q on rows x n
+    coefficients: Lq + KA limbs read, Lq written."""
+    K = KA - 1
+    products = 2 * Lq + Lq * KA + 2 * KA + 2 * K + 1 + K * Lq + Lq
+    return bound(rows * n * products * SHOUP32_SLOTS, FMA_SLOTS_S,
+                 rows * n * 4 * (2 * Lq + KA))
+
+
 def ntt_roofline_rate(n: int) -> float:
     """Limb transforms/s if each residue of a transform is read once and
     written once at HBM_BYTES_S and nothing else limits it (bench.py's

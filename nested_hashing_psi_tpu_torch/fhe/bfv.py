@@ -5,7 +5,9 @@ encoding with phase Delta*m + e, textbook HPS ct x ct
 (``ops.basis.BFVMulConverter``) on the full basis (``ct_ct_mul``, the fused
 ``ct_ct_mul_relin``) or after the exact drop-limb rescale
 (``ops.basis.RNSRescale``, ``rescale_ct``, the fused
-``hps_mul_relin_rescaled``), the exact t-scaling bridge to BGV form
+``hps_mul_relin_rescaled``; on a GPU the rescale, the base extension, the
+tensor products and scale-and-round are the HPS kernels of csrc/hps.cu),
+the exact t-scaling bridge to BGV form
 (``ct_ct_mul_bridge``, with the Delta-lifting relinearisation) and the host
 decode of a BFV phase. ``make_context`` picks BGV or BFV from the scheme.
 """
@@ -21,6 +23,7 @@ from nested_hashing_psi_tpu_torch.fhe.bgv import (
     tensor_product,
 )
 from nested_hashing_psi_tpu_torch.fhe.params import SchemeParams
+from nested_hashing_psi_tpu_torch.ops import hps_cuda
 from nested_hashing_psi_tpu_torch.ops.basis import BFVMulConverter, RNSRescale
 from nested_hashing_psi_tpu_torch.ops.modmath import add_mod, mont_mul
 from nested_hashing_psi_tpu_torch.ops.ntt_cuda import intt, ntt
@@ -112,24 +115,32 @@ class BFVContext(BGVContext):
     def _intt_fast_aux(self, x):
         return intt(x, self.mulconv.plan_aux)
 
-    def _hps_core(self, a_data, b_data, ab_coeffs=None) -> torch.Tensor:
+    def _hps_core(self, a_data, b_data, ab_coeffs=None, ab_aux=None) -> torch.Tensor:
         """Textbook HPS product core: NTT-domain operands (each (..., 2, L, N))
         -> coefficient-domain product over q, (..., 3, L, N).
 
         ab_coeffs, when given, is the stacked (2, ..., 2, L, N)
         coefficient-domain view of the operands (the rescaled path already
-        has it, so the iNTT is skipped)."""
+        has it, so the iNTT is skipped); ab_aux, when given, its extension
+        to the aux base. On CUDA tensors the extension, both tensor products
+        and scale-and-round with the return to q are the HPS kernels
+        (``ops.hps_cuda``); K1 transforms between them."""
         mc = self.mulconv
-        tb = mc.plan_aux.tensors(self.device)
         if ab_coeffs is None:
             ab_coeffs = self._intt_fast(torch.stack([a_data, b_data], dim=0))
+        if ab_aux is None:
+            ab_aux = mc.extend_q_to_aux(ab_coeffs)
         # both operands ride one stacked transform per direction
-        eab = self._ntt_fast_aux(mc.extend_q_to_aux(ab_coeffs))
-        d_q = tensor_product(a_data, b_data, self.p, self.pinv, self.r2)
-        d_aux = tensor_product(eab[0], eab[1], tb["p"], tb["pinv"], tb["r2"])
+        eab = self._ntt_fast_aux(ab_aux)
+        if a_data.is_cuda:
+            d_q, d_aux = hps_cuda.tensor_products(a_data.contiguous(), b_data.contiguous(),
+                                                  eab[0], eab[1], mc)
+        else:
+            tb = mc.plan_aux.tensors(self.device)
+            d_q = tensor_product(a_data, b_data, self.p, self.pinv, self.r2)
+            d_aux = tensor_product(eab[0], eab[1], tb["p"], tb["pinv"], tb["r2"])
         # scale by t/q with rounding, exact-convert back to q
-        y = mc.scale_round(self._intt_fast(d_q), self._intt_fast_aux(d_aux))
-        return mc.exact_to_q(y)
+        return mc.scale_round_to_q(self._intt_fast(d_q), self._intt_fast_aux(d_aux))
 
     # ------------------------------------------------------------------
     # drop-limb rescale (BFV modulus switch) + the rescaled mult pipeline
@@ -178,9 +189,12 @@ class BFVContext(BGVContext):
         assert a.form == "bfv" and b.form == "bfv"
         mctx = self.context_for_limbs(mul_limbs)
         a_L = a.data.shape[-2] if a_limbs is None else a_limbs
+        ab_aux = None  # the rescaled operands' aux residues, where one pass makes both
         if a_L == self.L and b.data.shape[-2] == self.L:
+            assert 1 <= mul_limbs < self.L
             ab_coeffs = self._intt_fast(torch.stack([a.data, b.data], dim=0))
-            ab_m = self.rescale_coeffs(ab_coeffs, mul_limbs)
+            ab_m, ab_aux = self._rescaler(mul_limbs).rescale_extend(
+                ab_coeffs, mctx.mulconv.q_to_aux)
         else:
             actx = self.context_for_limbs(a_L)
             a_c = actx._intt_fast(a.data)
@@ -188,7 +202,7 @@ class BFVContext(BGVContext):
             b_m = self.rescale_coeffs(self._intt_fast(b.data), mul_limbs)
             ab_m = torch.stack([a_m, b_m], dim=0)
         ntt_m = mctx._ntt_fast(ab_m)
-        y = mctx._hps_core(ntt_m[0], ntt_m[1], ab_coeffs=ab_m)
+        y = mctx._hps_core(ntt_m[0], ntt_m[1], ab_coeffs=ab_m, ab_aux=ab_aux)
         d01 = mctx._ntt_fast(y[..., :2, :, :])
         rlk_m = self.shrink_relin_key(rlk, mul_limbs)
         ks0, ks1 = mctx._key_switch_coeffs(y[..., 2, :, :], rlk_m)

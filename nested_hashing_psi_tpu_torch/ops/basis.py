@@ -8,6 +8,10 @@ a ``BasisExtension``, t/q scale-and-round, exact Shenoy-Kumaresan aux -> q).
 The host constants are the reference's numpy arrays; ``_consts(device)``
 lifts them to int64 tensors once per device.
 
+On a CUDA tensor each conversion launches its CUDA kernel (csrc/hps.cu,
+``ops.hps_cuda``) or raises; the ``*_plain`` methods are the plain PyTorch
+versions, the CPU path and the kernels' oracle.
+
 Float width of the overflow estimates: **float64**. The reference computes
 them in float64 only when ``jax_enable_x64`` is set and in float32
 otherwise; float64 is the more accurate of the two and costs nothing that
@@ -24,6 +28,7 @@ import math
 import numpy as np
 import torch
 
+from nested_hashing_psi_tpu_torch.ops import hps_cuda
 from nested_hashing_psi_tpu_torch.ops.modmath import (
     add_mod,
     modsum,
@@ -111,7 +116,15 @@ class BasisExtension(_DeviceConsts):
         """(..., L, N) coefficient-domain residues over src -> (..., K, N)
         over dst. Exact up to a possible +-q boundary miss (correction=True),
         or x + u*q for some u in [0, L) (correction=False, the lazy variant
-        that skips the overflow count)."""
+        that skips the overflow count). A CUDA tensor goes to the HPS
+        kernel (``ops.hps_cuda``), bit-exact with ``convert_plain``."""
+        if x.is_cuda:
+            return hps_cuda.rescale_extend(x.contiguous(), extension=self,
+                                           correction=correction)[1]
+        return self.convert_plain(x, correction)
+
+    def convert_plain(self, x: torch.Tensor, correction: bool = True) -> torch.Tensor:
+        """``convert`` in plain PyTorch, on any device."""
         c = self._consts(x.device)
         dst_p = c["dst_p"]
         y = shoup_mul(x, *c["qhat_inv"], c["src_p"])
@@ -170,7 +183,24 @@ class RNSRescale(_DeviceConsts):
         self._inv_drop_np = np.array([1.0 / p for p in drop]).reshape(Ld, 1)
 
     def rescale(self, coeffs: torch.Tensor) -> torch.Tensor:
-        """(..., L, N) coefficient-domain residues -> (..., L - n_drop, N)."""
+        """(..., L, N) coefficient-domain residues -> (..., L - n_drop, N).
+        A CUDA tensor goes to the HPS kernel, bit-exact with
+        ``rescale_plain``."""
+        if coeffs.is_cuda:
+            return hps_cuda.rescale_extend(coeffs.contiguous(), rescaler=self)[0]
+        return self.rescale_plain(coeffs)
+
+    def rescale_extend(self, coeffs: torch.Tensor, extension: BasisExtension):
+        """(``rescale(coeffs)``, ``extension.convert`` of it): on a CUDA
+        tensor one pass, whose rescaled residues go to the extension from
+        registers."""
+        if coeffs.is_cuda:
+            return hps_cuda.rescale_extend(coeffs.contiguous(), self, extension)
+        kept = self.rescale_plain(coeffs)
+        return kept, extension.convert_plain(kept)
+
+    def rescale_plain(self, coeffs: torch.Tensor) -> torch.Tensor:
+        """``rescale`` in plain PyTorch, on any device."""
         c = self._consts(coeffs.device)
         Lk = len(self.keep_primes)
         p_k = c["p_keep"]
@@ -282,17 +312,38 @@ class BFVMulConverter(_DeviceConsts):
     def scale_round(self, d_q: torch.Tensor, d_aux: torch.Tensor) -> torch.Tensor:
         """y = round(t*d/q) over aux from d's coefficient-domain residues
         over q (..., L, N) and over aux (..., K+1, N); r = [t*d]_q's
-        extension is lazy (an overshoot u*q shifts y by exactly -u)."""
+        extension is lazy (an overshoot u*q shifts y by exactly -u). A CUDA
+        tensor goes to the HPS kernel, bit-exact with ``scale_round_plain``."""
+        if d_q.is_cuda:
+            return hps_cuda.scale_exact(d_q.contiguous(), d_aux.contiguous(), self, exact=False)
+        return self.scale_round_plain(d_q, d_aux)
+
+    def scale_round_to_q(self, d_q: torch.Tensor, d_aux: torch.Tensor) -> torch.Tensor:
+        """``exact_to_q(scale_round(d_q, d_aux))``: on a CUDA tensor one
+        pass, y kept in registers."""
+        if d_q.is_cuda:
+            return hps_cuda.scale_exact(d_q.contiguous(), d_aux.contiguous(), self)
+        return self.exact_to_q_plain(self.scale_round_plain(d_q, d_aux))
+
+    def scale_round_plain(self, d_q: torch.Tensor, d_aux: torch.Tensor) -> torch.Tensor:
+        """``scale_round`` in plain PyTorch, on any device."""
         c = self._consts(d_q.device)
         p_aux = c["p_aux"]
         r = shoup_mul(d_q, *c["t_q"], c["p_q"])
-        r_aux = self.extend_q_to_aux(r, correction=False)
+        r_aux = self.q_to_aux.convert_plain(r, correction=False)
         td = shoup_mul(d_aux, *c["t_aux"], p_aux)
         return shoup_mul(sub_mod(td, r_aux, p_aux), *c["qinv_aux"], p_aux)
 
     def exact_to_q(self, y: torch.Tensor) -> torch.Tensor:
         """(..., K+1, N) residues of centered y (|y| < B/2) -> exact
-        (..., L, N) residues over q (Shenoy-Kumaresan via m_r)."""
+        (..., L, N) residues over q (Shenoy-Kumaresan via m_r). A CUDA
+        tensor goes to the HPS kernel, bit-exact with ``exact_to_q_plain``."""
+        if y.is_cuda:
+            return hps_cuda.scale_exact(None, y.contiguous(), self, scale=False)
+        return self.exact_to_q_plain(y)
+
+    def exact_to_q_plain(self, y: torch.Tensor) -> torch.Tensor:
+        """``exact_to_q`` in plain PyTorch, on any device."""
         c = self._consts(y.device)
         K = self.K
         p_q, p_mr = c["p_q"], c["p_mr"]

@@ -47,6 +47,14 @@ _SIGNATURES = {
     "nhpsi_ntt_mxu": [_P] * 9 + [_I] * 5 + [ctypes.POINTER(_I), _P],
     # (phase, mask, consts, psi, s2n, rows, L, logn, length, bgv, cluster, stream)
     "nhpsi_decrypt_mask": [_P] * 5 + [_I] * 5 + [_P],
+    # (x, keep, aux, rescale table, extension table, rows, L, Lk, KA, N,
+    #  flags, stream)
+    "nhpsi_hps_rescale_extend": [_P] * 5 + [_LL] + [_I] * 5 + [_P],
+    # (qa, qb, aa, ab, dq, daux, table, rows, Lq, KA, N, stream)
+    "nhpsi_hps_tensor": [_P] * 7 + [_LL] + [_I] * 3 + [_P],
+    # (dq, din, out, extension table, multiply table, rows, Lq, KA, N, flags,
+    #  stream)
+    "nhpsi_hps_scale_exact": [_P] * 5 + [_LL] + [_I] * 4 + [_P],
     # the probes under benchmarks/: (x, y, n, mix, k, stream)
     "nhpsi_probe_vpu_ops": [_P, _P, _I, _I, _I, _P],
     # (x, y, sa, sb, primes, B, L, m, variant, stream)
