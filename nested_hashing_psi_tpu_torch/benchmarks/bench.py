@@ -52,7 +52,7 @@ from nested_hashing_psi_tpu_torch.fhe.device_decrypt import DeviceDecryptor
 from nested_hashing_psi_tpu_torch.ops import ntt_cuda
 from nested_hashing_psi_tpu_torch.ops.ntt import NTTPlan, ntt
 from nested_hashing_psi_tpu_torch.ops.primes import ntt_primes
-from nested_hashing_psi_tpu_torch.protocol.batched_fhe import resolve_device
+from nested_hashing_psi_tpu_torch.utils.device import resolve_device
 
 N = 1 << 14
 LIMBS = 6

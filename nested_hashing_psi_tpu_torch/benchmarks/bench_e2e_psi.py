@@ -41,16 +41,16 @@ from nested_hashing_psi_tpu_torch.convert import from_numpy, to_numpy
 from nested_hashing_psi_tpu_torch.fhe.bgv import Ciphertext, SecretKey
 from nested_hashing_psi_tpu_torch.ops import ntt_cuda, pie_kernels
 from nested_hashing_psi_tpu_torch.pie.batched_fhe import BatchedFHEClientOps
-from nested_hashing_psi_tpu_torch.protocol.batched_fhe import _sync, result_zero_mask
+from nested_hashing_psi_tpu_torch.protocol.batched_fhe import result_zero_mask
 from nested_hashing_psi_tpu_torch.protocol.channel import LoopbackChannel
 from nested_hashing_psi_tpu_torch.protocol.runner import (
     default_data,
     make_protocol_pair,
-    resolve_device,
     run_in_process,
     run_parties,
 )
 from nested_hashing_psi_tpu_torch.utils.checkpoint import load_batched_pie, save_batched_pie
+from nested_hashing_psi_tpu_torch.utils.device import resolve_device, synchronize
 
 PERF_DIR = "eval_results_torch"
 
@@ -254,7 +254,7 @@ def resume_main(args, device: torch.device) -> int:
     checkpoint and its sidecar."""
     t0 = time.perf_counter()
     pie = load_batched_pie(args.resume, device=device)
-    _sync(device)
+    synchronize(device)
     load_s = time.perf_counter() - t0
     with np.load(sidecar_path(args.resume)) as z:
         idx = Ciphertext(from_numpy(z["idx"], device), pie.ctx.default_form)
@@ -265,7 +265,7 @@ def resume_main(args, device: torch.device) -> int:
     pie_kernels.reset_launches()
     t0 = time.perf_counter()
     out = pie.run(idx, minus)
-    _sync(device)
+    synchronize(device)
     q_s = time.perf_counter() - t0
     launched = {"ntt_fwd": ntt_cuda.launches["ntt"], "ntt_inv": ntt_cuda.launches["intt"],
                 "pie_ip": pie_kernels.launches}

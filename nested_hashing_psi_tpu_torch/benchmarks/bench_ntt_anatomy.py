@@ -48,6 +48,7 @@ from nested_hashing_psi_tpu_torch.benchmarks.bench_ntt_lazy_probe import (
 )
 from nested_hashing_psi_tpu_torch.ops import cuda_lib
 from nested_hashing_psi_tpu_torch.ops.split_plan import SplitNTTPlan
+from nested_hashing_psi_tpu_torch.utils.device import resolve_device
 
 VARIANTS = ("stages", "moves")
 # The fewest FMA-pipe plus ALU instructions of one stages butterfly (a
@@ -133,7 +134,8 @@ def kernel_name(m: int, which: str) -> str:
 def moves_sass(plan: SplitNTTPlan) -> dict:
     """Static SASS instruction counts of the moves kernel's row loop (its
     global-memory loops are unrolled 16 times, so these are not counts per
-    element); chip_smoke.py checks that it has LDS and STS."""
+    element); test_anatomy_moves_go_through_shared_memory checks that it
+    has LDS and STS."""
     body = common.loop_body(common.find_function(kernel_name(plan.m1, "moves")))
     return common.by_pipe(body, 1)
 
@@ -142,7 +144,7 @@ def run(device: str = "cuda", n: int = N, limbs: int = LIMBS, batch: int = BATCH
         iters: int = 10) -> dict:
     """Each variant against the plain version, timed, beside K1 on the same
     input. Raises if a variant disagrees."""
-    dev = common.resolve_device(device)
+    dev = resolve_device(device)
     ps, plan, x = inputs(n, limbs, batch, dev)
     rows, out = batch * limbs, {}
     for name in VARIANTS:

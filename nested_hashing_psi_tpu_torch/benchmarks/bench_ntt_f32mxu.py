@@ -40,7 +40,7 @@ from nested_hashing_psi_tpu_torch.benchmarks.timing import chain, time_ms
 from nested_hashing_psi_tpu_torch.ops import ntt_cuda, ntt_mxu
 from nested_hashing_psi_tpu_torch.ops.ntt import NTTPlan
 from nested_hashing_psi_tpu_torch.ops.primes import ntt_primes
-from nested_hashing_psi_tpu_torch.protocol.batched_fhe import resolve_device
+from nested_hashing_psi_tpu_torch.utils.device import resolve_device
 
 N = 1 << 14
 M = 128    # m1 = m2 = 128

@@ -29,7 +29,7 @@ from nested_hashing_psi_tpu_torch.benchmarks.timing import chain, time_ms
 from nested_hashing_psi_tpu_torch.ops import ntt_cuda
 from nested_hashing_psi_tpu_torch.ops.ntt import NTTPlan, intt, ntt
 from nested_hashing_psi_tpu_torch.ops.primes import ntt_primes
-from nested_hashing_psi_tpu_torch.protocol.batched_fhe import resolve_device
+from nested_hashing_psi_tpu_torch.utils.device import resolve_device
 
 N = 1 << 14
 LIMBS = 6

@@ -43,13 +43,14 @@ from nested_hashing_psi_tpu_torch.ops import cuda_lib, ntt_cuda
 from nested_hashing_psi_tpu_torch.ops.ntt import NTTPlan, ntt
 from nested_hashing_psi_tpu_torch.ops.primes import ntt_primes
 from nested_hashing_psi_tpu_torch.ops.split_plan import SplitNTTPlan
+from nested_hashing_psi_tpu_torch.utils.device import resolve_device
 
 VARIANTS = ("exact", "lazy", "lazy_ps")
 N, LIMBS, BATCH = 1 << 14, 6, 512
 KERNEL_M = (32, 64, 128)  # the kernel's tile sides: n = 2^10, 2^12, 2^14
 HBM_BYTES_S = 3.35e12
 # The fewest FMA-pipe plus ALU instructions one butterfly of each form can
-# take; chip_smoke.py's [sass] step fails below it, as a miscounted loop or
+# take; test_probe_butterflies_not_folded fails below it, as a miscounted loop or
 # a folded chain must not pass as a fast kernel. exact: the Shoup product
 # (IMAD.HI and two IMADs), its conditional subtract, and an add_mod and a
 # sub_mod of two each (an add, then a fused add-min); lazy: the same
@@ -207,7 +208,7 @@ def run(device: str = "cuda", n: int = N, limbs: int = LIMBS, batch: int = BATCH
         iters: int = 10) -> dict:
     """Each form against the plain version, timed, with its rate; and K1 on
     the same input. Raises if a form disagrees."""
-    dev = common.resolve_device(device)
+    dev = resolve_device(device)
     ps, plan, x = inputs(n, limbs, batch, dev)
     rows, out = batch * limbs, {}
     table_bytes = plan.s1_v2.nbytes + plan.s2_v2.nbytes

@@ -40,7 +40,7 @@ from nested_hashing_psi_tpu_torch.fhe.bgv import BGVContext
 from nested_hashing_psi_tpu_torch.fhe.params import SchemeParams
 from nested_hashing_psi_tpu_torch.ops import pie_kernels
 from nested_hashing_psi_tpu_torch.pie.batched_fhe import BatchedFHEPIE, position_sum
-from nested_hashing_psi_tpu_torch.protocol.batched_fhe import resolve_device
+from nested_hashing_psi_tpu_torch.utils.device import resolve_device
 
 CONFIGS = {
     # name: (H, D=maxPP, P=cuckooSize, simple_size, n_simple, limbs)

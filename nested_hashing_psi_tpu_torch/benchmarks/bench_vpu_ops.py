@@ -35,6 +35,7 @@ import torch
 
 from nested_hashing_psi_tpu_torch.benchmarks import card, common, timing, u32
 from nested_hashing_psi_tpu_torch.ops import cuda_lib
+from nested_hashing_psi_tpu_torch.utils.device import resolve_device
 
 MIXES = ("add", "mul", "addmul", "where_ge", "mulhi", "shoup", "shoup_lazy", "mont",
          "addmod", "fmul", "mul4_ilp")
@@ -216,7 +217,7 @@ def run(device: str = "cuda", shape=SHAPE, mixes=MIXES, iters: int = 5) -> dict:
     bound_ms and bound_by (at RATE_K), rate_share; apps_per_s. On the CPU
     every time is the host's clock around the plain version and no bound
     or share exists (no SASS): they are None."""
-    dev = common.resolve_device(device)
+    dev = resolve_device(device)
     rng = np.random.default_rng(0)
     x = torch.from_numpy(rng.integers(0, 1 << 31, size=shape, dtype=np.int64)
                          .astype(np.int32)).to(dev)

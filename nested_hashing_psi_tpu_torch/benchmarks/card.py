@@ -1,6 +1,6 @@
 """The card's peak rates and the kernels' bounds, in one place.
 
-``chip_smoke.py``, ``bench.py`` and the other tools read the H100's memory
+``profile_online.py``, ``bench.py`` and the other tools read the H100's memory
 rate, its integer rates and the least time each kernel could take from
 here, and the card's name and power limit from ``card_line``
 (``nvidia-smi``).

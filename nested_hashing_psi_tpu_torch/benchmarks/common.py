@@ -1,14 +1,11 @@
-"""What the three probes share: the device choice and the SASS
-instruction counts of their kernels (``cuobjdump -sass`` of the built
-kernel library)."""
+"""What the three probes share: the SASS instruction counts of their
+kernels (``cuobjdump -sass`` of the built kernel library)."""
 
 from __future__ import annotations
 
 import os
 import re
 import subprocess
-
-import torch
 
 from nested_hashing_psi_tpu_torch.ops import cuda_lib
 
@@ -23,17 +20,6 @@ CONTROL = ("BRA", "EXIT", "NOP", "BAR", "BSSY", "BSYNC", "RET", "CALL")
 
 _INSTR = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)([^;]*);")
 _sass_cache: dict = {}
-
-
-def resolve_device(name: str) -> torch.device:
-    """torch.device(name); ``cuda`` without a GPU raises (no fallback)."""
-    dev = torch.device(name)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("--device cuda needs a GPU (torch.cuda.is_available() is false); "
-                           "pass --device cpu for the plain version")
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"no probe for device {dev}")
-    return dev
 
 
 def sass_functions() -> dict[str, list[tuple[int, str, str]]]:

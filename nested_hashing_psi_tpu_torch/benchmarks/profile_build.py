@@ -45,7 +45,7 @@ from nested_hashing_psi_tpu_torch.hashing import HierarchicalCuckooHashTable, Ta
 from nested_hashing_psi_tpu_torch.hashing.device_build import insert_hierarchical
 from nested_hashing_psi_tpu_torch.ops import ntt_cuda
 from nested_hashing_psi_tpu_torch.pie.batched_fhe import BatchedFHEPIE
-from nested_hashing_psi_tpu_torch.protocol.batched_fhe import _sync, resolve_device
+from nested_hashing_psi_tpu_torch.utils.device import resolve_device, synchronize
 from nested_hashing_psi_tpu_torch.utils.profiling import TRACER
 
 
@@ -101,7 +101,7 @@ def main(argv=None) -> dict:
                                     scheme="bfv"), seed=1, device=device)
     sk, _ = ctx.keygen()
     rlk = ctx.relin_keygen(sk)
-    _sync(device)
+    synchronize(device)
     ntt_cuda.reset_launches()
     pie = BatchedFHEPIE(ctx, hct, rlk, mask_seed=1)
     enc = last_span("build.encode")

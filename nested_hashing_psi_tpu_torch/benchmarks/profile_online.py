@@ -24,7 +24,12 @@ products (``fhe/bgv.py`` ``tensor_product``), under the JAX tool's names.
 Each row is the mean ms of 20 calls issued back to back
 (``timing.time_ms``: CUDA events on the card) beside the device kernels
 one call launches and their device ms, from a torch.profiler trace of one
-call (``timing.traced_kernels``). ``trace`` writes a torch.profiler trace
+call (``timing.traced_kernels``). On the card ``main`` then times each
+kernel of a set alone at the shapes of the benchmark's three cells
+(``SHAPES``): K2, BFV's four HPS kernels (``csrc/hps.cu``) and the decrypt
+kernel, from a CUDA graph of 20 calls (the device's time) and through the
+wrapper back to back, beside its bound (``benchmarks/card.py``) and the
+share of it the graph's time reaches. ``trace`` writes a torch.profiler trace
 (``utils.profiling.device_trace``) of 8 steps of the production pipeline,
 each followed by the device decrypt's zero mask, into
 ``eval_results_torch/trace_online``, and prints the top device kernels by
@@ -40,15 +45,31 @@ import os
 
 import torch
 
-from nested_hashing_psi_tpu_torch.benchmarks import small_pie
-from nested_hashing_psi_tpu_torch.benchmarks.timing import EVAL_DIR, time_ms, traced_kernels
+from nested_hashing_psi_tpu_torch.benchmarks import card, small_pie
+from nested_hashing_psi_tpu_torch.benchmarks.timing import (
+    EVAL_DIR,
+    graph_ms,
+    time_ms,
+    traced_kernels,
+)
+from nested_hashing_psi_tpu_torch.fhe.bfv import make_context
 from nested_hashing_psi_tpu_torch.fhe.bgv import Ciphertext, tensor_product
 from nested_hashing_psi_tpu_torch.fhe.device_decrypt import DeviceDecryptor
+from nested_hashing_psi_tpu_torch.fhe.params import SchemeParams, bfv_mul_limbs, bfv_ship_limbs
+from nested_hashing_psi_tpu_torch.ops import decrypt_cuda, hps_cuda, pie_kernels
+from nested_hashing_psi_tpu_torch.ops.basis import BFVMulConverter, RNSRescale
 from nested_hashing_psi_tpu_torch.ops.modmath import add_mod, mont_mul
+from nested_hashing_psi_tpu_torch.ops.ntt import NTTPlan
 from nested_hashing_psi_tpu_torch.pie.batched_fhe import batched_pie_forward, position_sum
-from nested_hashing_psi_tpu_torch.protocol.batched_fhe import resolve_device
+from nested_hashing_psi_tpu_torch.utils.device import resolve_device
 
 MAIN_ROWS = ("pos_sum", "hps_mul", "relin", "ctxpt", "full", "full_rescaled")
+# The shapes of the benchmark's three cells (their source: psi_bench/configs):
+# H = 2 inner hashes, ring 16384, t = 2^32 + 2^20 + 2^19 + 1, 2 x 8022 batch
+# slots; name -> (D = P, L, form)
+SHAPES = {"D12_L6_bfv": (12, 6, "bfv"), "D12_L9_bgv": (12, 9, "bgv"),
+          "D48_L6_bfv": (48, 6, "bfv")}
+SHAPE_T, SHAPE_N, SHAPE_SLOTS = (1 << 32) + (1 << 20) + (1 << 19) + 1, 16384, 2 * 8022
 HPS_ROWS = ("intt_q(2xDx2xL)", "extend(VPU)", "ntt_aux(2xDx2xKA)", "tensor_both",
             "intt_dq(Dx3xL)", "intt_daux(Dx3xKA)", "scale+exact(VPU)", "ntt_final(Dx3xL)")
 
@@ -157,6 +178,79 @@ def hps_rows(built: small_pie.SmallPIE, device: torch.device, iters: int = 20) -
     return _measure(rows, device, iters)
 
 
+def kernel_rows(device: torch.device, shapes: dict = SHAPES, iters: int = 20) -> dict:
+    """Each kernel of a set alone at each of ``shapes``, on the card: K2
+    over the (2, D, D, L, n) table; under BFV the rescale with the base
+    extension (L -> mul_limbs + aux), the tensor products, scale-and-round
+    with the return to q (D products) and the ship rescale; the decrypt
+    kernel on the (D, shipped limbs, n) phase. Inputs are residues below
+    the smallest prime, drawn on the card. -> {"<shape> <kernel>": {shape,
+    graph_ms, wrapper_ms, bound_ms, bound_by, share}}"""
+    gen = torch.Generator(device=device).manual_seed(23)
+    n, out = SHAPE_N, {}
+
+    def res(shape, primes):
+        return torch.randint(0, int(min(primes)), shape, generator=gen, device=device,
+                             dtype=torch.int32)
+
+    def row(name, shape, fn, bound):
+        g_ms, w_ms = graph_ms(fn, device, iters), time_ms(fn, device, iters)
+        out[name] = {"shape": list(shape), "graph_ms": g_ms, "wrapper_ms": w_ms,
+                     "bound_ms": bound[0], "bound_by": bound[1], "share": bound[0] / g_ms}
+
+    for label, (D, L, form) in shapes.items():
+        ctx = make_context(SchemeParams(ring_dim=n, plaintext_modulus=SHAPE_T, num_limbs=L,
+                                        scheme=form), seed=0, device=device)
+        q = list(ctx.q_primes)
+        tb = NTTPlan(n, q).tensors(device)
+        idx, pt = res((2, D, 2, L, n), q), res((2, D, D, L, n), q)
+        row(f"{label} K2", pt.shape,
+            lambda: pie_kernels.indexed_inner_product(idx, pt, tb["p_u32"], tb["pinv_u32"]),
+            card.k2_bound(2, D, D, L, n))
+        del idx, pt
+        shipped = L
+        if form == "bfv":
+            mul = bfv_mul_limbs(SHAPE_T.bit_length(), L, 1, ring_dim=n)
+            shipped = bfv_ship_limbs(SHAPE_T.bit_length(), mul, ring_dim=n)
+            mc, rs, ship = BFVMulConverter(q[:mul], SHAPE_T, n), RNSRescale(q, L - mul), \
+                RNSRescale(q[:mul], mul - shipped)
+            aux = list(mc.aux_primes)
+            x = res((2, D, 2, L, n), q)
+            row(f"{label} HPS rescale + extension", x.shape,
+                lambda: rs.rescale_extend(x, mc.q_to_aux),
+                card.hps_rescale_extend_bound(4 * D, n, L, mul, len(aux)))
+            a, b, ea, eb = (res((D, 2, mul, n), q[:mul]), res((D, 2, mul, n), q[:mul]),
+                            res((D, 2, len(aux), n), aux), res((D, 2, len(aux), n), aux))
+            row(f"{label} HPS tensor products", (D, 2, mul + len(aux), n),
+                lambda: hps_cuda.tensor_products(a, b, ea, eb, mc),
+                card.hps_tensor_bound(D, n, mul, len(aux)))
+            d_q, d_aux = res((D, 3, mul, n), q[:mul]), res((D, 3, len(aux), n), aux)
+            row(f"{label} HPS scale + exact return", (D, 3, mul + len(aux), n),
+                lambda: mc.scale_round_to_q(d_q, d_aux),
+                card.hps_scale_exact_bound(3 * D, n, mul, len(aux)))
+            y = res((D, 2, mul, n), q[:mul])
+            row(f"{label} HPS ship rescale", y.shape, lambda: ship.rescale(y),
+                card.hps_rescale_extend_bound(2 * D, n, mul, shipped, 0))
+            del x, a, b, ea, eb, d_q, d_aux, y
+        dctx = ctx.context_for_limbs(shipped)
+        tables = DeviceDecryptor(dctx, form).kernel_tables
+        phase = res((D, shipped, n), dctx.q_primes)
+        row(f"{label} decrypt", phase.shape,
+            lambda: decrypt_cuda.zero_mask(phase, *tables, form == "bgv", SHAPE_SLOTS),
+            card.decrypt_bound(D, shipped, n, SHAPE_SLOTS, form == "bgv"))
+        del phase
+        torch.cuda.empty_cache()
+    return out
+
+
+def print_kernel_rows(res: dict) -> None:
+    line = card.card_line()
+    for name, r in res.items():
+        print(f"[kernels] {name} {tuple(r['shape'])}: {r['graph_ms']:.4f} ms from a CUDA graph, "
+              f"{r['wrapper_ms']:.4f} ms through the wrapper; bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}), share {r['share']:.3f} | {line}", flush=True)
+
+
 def capture_trace(built: small_pie.SmallPIE, device: torch.device,
                   outdir: str = os.path.join(EVAL_DIR, "trace_online"), steps: int = 8) -> list:
     """A torch.profiler trace of ``steps`` production steps, each followed by
@@ -201,6 +295,10 @@ def main(argv=None):
     res = main_rows(built, device)
     print_rows("profile_online", res)
     print_sum(res)
+    if device.type == "cuda":
+        del built
+        res["kernels"] = kernel_rows(device)
+        print_kernel_rows(res["kernels"])
     return res
 
 

@@ -72,7 +72,7 @@ from nested_hashing_psi_tpu_torch.parallel.multihost import (
     init_distributed,
 )
 from nested_hashing_psi_tpu_torch.pie.batched_fhe import batched_pie_forward
-from nested_hashing_psi_tpu_torch.protocol.batched_fhe import resolve_device
+from nested_hashing_psi_tpu_torch.utils.device import resolve_device
 
 RANKS_TIMEOUT = 600.0  # s: the ranks' start, their builds and their queries
 BUDGET_S = 1.5  # the JAX tool's time per row without --iters

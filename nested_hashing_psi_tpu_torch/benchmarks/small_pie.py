@@ -27,7 +27,7 @@ from nested_hashing_psi_tpu_torch.hashing import (
 )
 from nested_hashing_psi_tpu_torch.hashing.tabulation import items_from_ints
 from nested_hashing_psi_tpu_torch.pie.batched_fhe import BatchedFHEClientOps, BatchedFHEPIE
-from nested_hashing_psi_tpu_torch.protocol.batched_fhe import resolve_device
+from nested_hashing_psi_tpu_torch.utils.device import resolve_device
 
 T32 = (1 << 32) + (1 << 20) + (1 << 19) + 1  # the 32-bit items' plaintext modulus
 # the bench row: Parameters1.txt's 2^20 x 2048 2HF equal-block row

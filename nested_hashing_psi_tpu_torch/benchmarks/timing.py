@@ -1,6 +1,6 @@
 """Timing and kernel tracing for the port's tools, in one module.
 
-``chip_smoke.py``, the probes and the bench and eval tools all time here:
+The probes and the bench and eval tools all time here:
 
   time_ms   CUDA events around calls issued back to back, after warm-ups
   graph_ms  CUDA events around replays of one CUDA graph of such calls:

@@ -36,6 +36,8 @@ with ``ctx.shrink_key_to(sk, L')``).
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -46,55 +48,69 @@ from nested_hashing_psi_tpu_torch.ops.refmodel import _bitrev
 
 class DeviceDecryptor:
     """Decode constants of one context and one ciphertext form ("bfv" or
-    "bgv", the context's own by default), as tensors on its device."""
+    "bgv", the context's own by default), as tensors on its device: the
+    kernel's on a CUDA context, the plain version's ``ops.mod64`` planes on
+    first use (``slots``, ``zero_mask`` of a CPU tensor)."""
 
     def __init__(self, ctx, form: str | None = None):
         form = form or ctx.default_form
         if form not in ("bfv", "bgv"):
             raise ValueError(f"unknown ciphertext form {form!r}")
         self.ctx, self.form = ctx, form
-        t, n, L = int(ctx.t), ctx.n, ctx.L
+        t, n = int(ctx.t), ctx.n
         qs = [int(p) for p in ctx.q_primes]
-        dev = ctx.device
-
-        def col(vals):
-            return torch.tensor(vals, dtype=torch.int64, device=dev).reshape(-1, 1)
-
-        # y_i = phase_i * (q/q_i)^-1 mod q_i (Shoup constant per limb)
+        # y_i = phase_i * (q/q_i)^-1 mod q_i
         inv = [int(v) for v in np.asarray(ctx._crt_inv).reshape(-1)]
-        self._inv_w = col(inv)
-        self._inv_wq = col([shoup_host(inv[i], qs[i]) for i in range(L)])
-
-        # T_i = floor(t * 2^72 / q_i) (BFV) or floor(2^72 / q_i) (BGV's k),
-        # below 2^96, as three 32-bit planes (3, L, 1)
+        # T_i = floor(t * 2^72 / q_i) (BFV) or floor(2^72 / q_i) (BGV's k), below 2^96
         T = [((t if form == "bfv" else 1) << 72) // q for q in qs]
         if any(v >> 96 for v in T):
             raise ValueError(f"t = {t} is too wide for the decrypt's 96-bit CRT constants")
-        self._T = torch.stack([col([(v >> (32 * k)) & MASK32 for v in T]) for k in range(3)])
         self._t = t
         self._t2 = mod64.split_u64(t)
-        if form == "bgv":
-            q = ctx.params.q
-            h = [(q // p) % t for p in qs]  # [q/q_i]_t
-            self._h2 = tuple(col(c) for c in zip(*(mod64.split_u64(v) for v in h)))
-            self._hq2 = tuple(col(c) for c in zip(*(mod64.shoup64_host(v, t) for v in h)))
-            self._qt2 = mod64.split_u64(q % t), mod64.shoup64_host(q % t, t)
-
-        # decode-NTT twiddles mod t (bit-reversed psi powers + Shoup-64)
-        enc = ctx.encoder
+        # decode-NTT twiddles mod t: bit-reversed psi powers
         pows = [1] * n
         for i in range(1, n):
-            pows[i] = pows[i - 1] * enc.psi % t
+            pows[i] = pows[i - 1] * ctx.encoder.psi % t
         psi_pows = [pows[r] for r in _bitrev(n)]
-        self._psi_w = mod64.planes(np.array(psi_pows, dtype=np.uint64), dev)
-        self._psi_wq = mod64.planes(
-            np.array([(v << 64) // t for v in psi_pows], dtype=object), dev
-        )
-        self._s2n = torch.from_numpy(np.asarray(enc._s2n, np.int64)).to(dev)
-        # the decrypt kernel's tables, built on a CUDA context only
-        self._kernel_inputs = (qs, t, T, inv, psi_pows, enc._s2n)
-        self.kernel_tables = (decrypt_cuda.constants(*self._kernel_inputs, dev)
-                              if dev.type == "cuda" else None)
+        self._kernel_inputs = (qs, t, T, inv, psi_pows, ctx.encoder._s2n)
+        # the decrypt kernel's tables, built on a CUDA context only; the
+        # plain version's (below) on first use
+        self.kernel_tables = (decrypt_cuda.constants(*self._kernel_inputs, ctx.device)
+                              if ctx.device.type == "cuda" else None)
+
+    def _col(self, vals) -> torch.Tensor:
+        return torch.tensor(vals, dtype=torch.int64, device=self.ctx.device).reshape(-1, 1)
+
+    @functools.cached_property
+    def _crt_planes(self):
+        """The plain CRT step's tables: y's Shoup constants per limb, T_i as
+        three 32-bit planes (3, L, 1), and under BGV [q/q_i]_t and [q]_t as
+        ``ops.mod64`` planes."""
+        qs, t, T, inv = self._kernel_inputs[:4]
+        inv_w = self._col(inv)
+        inv_wq = self._col([shoup_host(v, q) for v, q in zip(inv, qs)])
+        T3 = torch.stack([self._col([(v >> (32 * k)) & MASK32 for v in T]) for k in range(3)])
+        bgv = None
+        if self.form == "bgv":
+            q = self.ctx.params.q
+            h = [(q // p) % t for p in qs]  # [q/q_i]_t
+            bgv = (tuple(self._col(c) for c in zip(*(mod64.split_u64(v) for v in h))),
+                   tuple(self._col(c) for c in zip(*(mod64.shoup64_host(v, t) for v in h))),
+                   (mod64.split_u64(q % t), mod64.shoup64_host(q % t, t)))
+        return inv_w, inv_wq, T3, bgv
+
+    @functools.cached_property
+    def _psi_w(self):
+        return mod64.planes(np.array(self._kernel_inputs[4], dtype=np.uint64), self.ctx.device)
+
+    @functools.cached_property
+    def _psi_wq(self):
+        return mod64.planes(np.array([(v << 64) // self._t for v in self._kernel_inputs[4]],
+                                     dtype=object), self.ctx.device)
+
+    @functools.cached_property
+    def _s2n(self) -> torch.Tensor:
+        return torch.from_numpy(np.asarray(self._kernel_inputs[5], np.int64)).to(self.ctx.device)
 
     def _phase(self, ct_data: torch.Tensor, s_mont: torch.Tensor) -> torch.Tensor:
         """[c0 + c1*s]_q coefficients (..., L, N) int32 (degree 2 only)."""
@@ -114,8 +130,9 @@ class DeviceDecryptor:
         and each plane of T_i < 2^32, so every y_i * T_ik is one exact int64
         product, split into its low and high words, and each column sum of
         at most 2L words stays far below 2^63 until one carry pass."""
-        y = shoup_mul(phase, self._inv_w, self._inv_wq, self.ctx.p).long()  # (..., L, N)
-        prods = [y * self._T[k] for k in range(3)]
+        inv_w, inv_wq, T3, bgv = self._crt_planes
+        y = shoup_mul(phase, inv_w, inv_wq, self.ctx.p).long()  # (..., L, N)
+        prods = [y * T3[k] for k in range(3)]
         lo = [(pk & MASK32).sum(dim=-2) for pk in prods]
         hi = [(pk >> 32).sum(dim=-2) for pk in prods]
         cols = [lo[0], hi[0] + lo[1], hi[1] + lo[2], hi[2]]
@@ -128,12 +145,13 @@ class DeviceDecryptor:
         if self.form == "bfv":
             m = torch.remainder(m_plus, self._t)
             return m & MASK32, m >> 32
+        h2, hq2, qt2 = bgv
         zero = torch.zeros_like(y)
-        terms = mod64.shoup_mul2((y, zero), self._h2, self._hq2, self._t2)  # y_i [q/q_i]_t
+        terms = mod64.shoup_mul2((y, zero), h2, hq2, self._t2)  # y_i [q/q_i]_t
         acc = terms[0][..., 0, :], terms[1][..., 0, :]
         for i in range(1, y.shape[-2]):
             acc = mod64.add2_mod(acc, (terms[0][..., i, :], terms[1][..., i, :]), self._t2)
-        kq = mod64.shoup_mul2((m_plus, torch.zeros_like(m_plus)), *self._qt2, self._t2)
+        kq = mod64.shoup_mul2((m_plus, torch.zeros_like(m_plus)), *qt2, self._t2)
         return mod64.sub2_mod(acc, kq, self._t2)
 
     def _slot_planes(self, ct_data: torch.Tensor, s_mont: torch.Tensor):

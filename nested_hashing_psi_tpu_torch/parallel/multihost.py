@@ -28,7 +28,7 @@ import torch
 import torch.distributed as dist
 
 from nested_hashing_psi_tpu_torch.parallel import comm
-from nested_hashing_psi_tpu_torch.protocol.batched_fhe import resolve_device
+from nested_hashing_psi_tpu_torch.utils.device import resolve_device
 
 TIMEOUT = timedelta(minutes=10)
 

@@ -22,14 +22,12 @@ multiplication, the result shipped on L - (H-1) limbs). The streamed upload
 
 Spans on ``utils.profiling.TRACER``, each with the device's time:
 ``pie.position_sum`` (every K2 call), ``pie.combine`` and inside it
-``scheme.mul_relin`` (every cross-hash multiply and relinearisation; its
-``counts`` hold the HPS kernels it launched, ``hps_launches``), and,
+``scheme.mul_relin`` (every cross-hash multiply and relinearisation), and,
 recorded always, ``build.encode`` (the packed table's build).
 """
 
 from __future__ import annotations
 
-import contextlib
 from dataclasses import dataclass
 
 import numpy as np
@@ -41,22 +39,9 @@ from nested_hashing_psi_tpu_torch.hashing.hierarchical import HierarchicalCuckoo
 from nested_hashing_psi_tpu_torch.fhe.bgv import BGVContext, Ciphertext, RelinKey, SecretKey
 from nested_hashing_psi_tpu_torch.fhe.device_encode import DeviceEncoder
 from nested_hashing_psi_tpu_torch.fhe.params import bfv_mul_limbs, bfv_ship_limbs
-from nested_hashing_psi_tpu_torch.ops import hps_cuda
 from nested_hashing_psi_tpu_torch.ops.modmath import add_mod, mont_mul
 from nested_hashing_psi_tpu_torch.ops.pie_kernels import indexed_inner_product
 from nested_hashing_psi_tpu_torch.utils.profiling import TRACER, synced_span
-
-
-@contextlib.contextmanager
-def _mul_relin_span(ctx: BGVContext):
-    """The span ``scheme.mul_relin`` around one cross-hash multiply and
-    relinearisation; a recorded one counts the HPS kernels launched inside
-    it (``counts["hps_launches"]``)."""
-    before = hps_cuda.launches
-    with TRACER.span("scheme.mul_relin", device=ctx.device) as span:
-        yield
-    if span is not None:
-        span.counts = {"hps_launches": hps_cuda.launches - before}
 
 
 def _zero_slots(result_slots: np.ndarray) -> np.ndarray:
@@ -121,7 +106,7 @@ def combine_ip(
             acc = Ciphertext(ip0, "bfv", 1)
             cur = ctx.L
             for h in range(1, H):
-                with _mul_relin_span(ctx):
+                with TRACER.span("scheme.mul_relin", device=ctx.device):
                     acc = ctx.hps_mul_relin_rescaled(
                         acc,
                         Ciphertext(rest[h - 1], "bfv", 1),
@@ -137,7 +122,7 @@ def combine_ip(
         acc = Ciphertext(ip0, form, 1)
         if not leveled or H == 1:
             for h in range(1, H):
-                with _mul_relin_span(ctx):
+                with TRACER.span("scheme.mul_relin", device=ctx.device):
                     acc = ctx.ct_ct_mul_relin(acc, Ciphertext(rest[h - 1], form, 1), rlk)
             return acc
 
@@ -157,7 +142,7 @@ def combine_ip(
         acc = switch_to(acc, 1)
         for h in range(1, H):
             op = switch_to(Ciphertext(rest[h - 1], "bgv", 1), h)
-            with _mul_relin_span(ctx):
+            with TRACER.span("scheme.mul_relin", device=ctx.device):
                 acc = chain[h].ct_ct_mul_relin(acc, op, ctx.shrink_relin_key(rlk, chain[h].L))
             if h < H - 1:
                 acc = chain[h].mod_switch(acc)

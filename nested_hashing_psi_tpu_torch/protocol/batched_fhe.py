@@ -59,24 +59,12 @@ from nested_hashing_psi_tpu_torch.pie.batched_fhe import (
     BatchedFHEClientOps,
     BatchedFHEPIE,
 )
+from nested_hashing_psi_tpu_torch.utils.device import resolve_device, synchronize
 from nested_hashing_psi_tpu_torch.utils.host_heap import keep_freed_host_memory
 from nested_hashing_psi_tpu_torch.utils.profiling import TRACER, synced_span
 
 PROTOCOL_NAME = "BatchedFHE"
 HOST_TABLE_BYTES = 5 << 30  # above this the reference keeps the table on the host
-
-
-def resolve_device(device) -> torch.device:
-    """torch.device for a party; a CUDA device must exist (no CPU fallback)."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device {device!r} requested but CUDA is not available")
-    return dev
-
-
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
 
 
 def _scheme_params(psi: PSIParams, ht: HashTableParams) -> SchemeParams:
@@ -111,13 +99,17 @@ def _scheme_params(psi: PSIParams, ht: HashTableParams) -> SchemeParams:
 
 def result_zero_mask(ctx, result: Ciphertext, sk, length: int,
                      decryptors: dict) -> tuple[np.ndarray, float | None]:
-    """A result's per-slot zero mask (..., D, length), decrypted in the
+    """A result's per-slot zero mask (..., length), decrypted in the
     context of its limb count: on a GPU on the device, BFV and BGV forms
     alike (``DeviceDecryptor``, kept in ``decryptors`` by (form, limb
     count); no noise estimate), on the CPU on the host.
     -> (mask, noise bits or None). Span ``client.decrypt``, holding
     ``decrypt.device`` (the device decrypt and its mask's download) or the
-    host decrypt's spans (``BGVContext.decrypt``)."""
+    host decrypt's spans (``BGVContext.decrypt``).
+
+    The one place a client picks its decrypt: the BatchedFHE and SimpleFHE
+    clients both call it through this module's global, which
+    ``psi_bench/exchange.py`` replaces to time the decrypt."""
     with TRACER.span("client.decrypt"):
         n_limbs = result.data.shape[-2]
         dctx = ctx.context_for_limbs(n_limbs)
@@ -182,7 +174,7 @@ class BatchedFHEPSIClient(PSIClientBase):
             self.ht.each_cuckoo_table_size,
         )
         self.idx_ct, self.minus_ct = self.client_ops.encrypt_query(self.sk)
-        _sync(self.device)  # the offline phase owns this cost
+        synchronize(self.device)  # the offline phase owns this cost
 
     def _effective_chunks(self) -> int:
         """Largest divisor of the inner position count <= the requested
@@ -313,7 +305,7 @@ class BatchedFHEPSIServer(PSIServerBase):
                               for c in range(n_chunks))
                     result = self.pie.run_streamed(chunks,
                                                    Ciphertext(minus, self.ctx.default_form))
-                _sync(self.device)
+                synchronize(self.device)
             self.online_computation_us = (time.monotonic_ns() - begin) // 1000
             send(self.channel, np.array([1 if result.form == "bgv" else 0, result.scale],
                                         np.uint64))
@@ -335,7 +327,7 @@ class BatchedFHEPSIServer(PSIServerBase):
         begin = time.monotonic_ns()
         with TRACER.span("server.step"):
             out = self.pie.run_many(idx_b, minus_b)
-            _sync(self.device)
+            synchronize(self.device)
         self.online_computation_us = (time.monotonic_ns() - begin) // 1000
         # the JAX server's frame: the native form and scale 1, even where a
         # leveled result carries prod q_l^-1 mod t (ROADMAP Queue 3)

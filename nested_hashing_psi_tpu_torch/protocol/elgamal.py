@@ -34,8 +34,8 @@ from nested_hashing_psi_tpu_torch.hashing import (
 )
 from nested_hashing_psi_tpu_torch.pie.elgamal import ElGamalPIE, PrecompElGamalPIE
 from nested_hashing_psi_tpu_torch.protocol.base import PSIClientBase, PSIServerBase
-from nested_hashing_psi_tpu_torch.protocol.batched_fhe import resolve_device
 from nested_hashing_psi_tpu_torch.protocol.channel import Channel
+from nested_hashing_psi_tpu_torch.utils.device import resolve_device
 
 
 def _item_int(item) -> int:

@@ -19,7 +19,6 @@ from nested_hashing_psi_tpu_torch.protocol.channel import LoopbackChannel, TCPCh
 from nested_hashing_psi_tpu_torch.protocol.batched_fhe import (
     BatchedFHEPSIClient,
     BatchedFHEPSIServer,
-    resolve_device,
 )
 from nested_hashing_psi_tpu_torch.protocol.elgamal import (
     PrecompElGamalPSIClient,
@@ -31,6 +30,7 @@ from nested_hashing_psi_tpu_torch.protocol.simple_fhe import (
     SimpleFHEPSIClient,
     SimpleFHEPSIServer,
 )
+from nested_hashing_psi_tpu_torch.utils.device import resolve_device
 
 
 def protocol_name(params: PSIParams) -> str:

@@ -10,9 +10,10 @@ randomized differences, a zero slot marking a hit. All positions travel and
 batch as one dense tensor (``pie.simple_fhe.SimpleFHEPIE``).
 
 Each party computes on an explicit ``device``; "cuda" raises when no GPU is
-present. A BFV result on a GPU is decrypted on the device, straight to the
-zero mask (``fhe.device_decrypt``), in bounded chunks; a BGV result, or any
-on the CPU, on the host, in chunks.
+present. The client decrypts the result in bounded chunks, each through
+``protocol.batched_fhe.result_zero_mask``, the one place a client picks its
+decrypt: on a GPU on the device straight to the zero mask, BFV and BGV
+results alike; on the CPU on the host.
 """
 
 from __future__ import annotations
@@ -26,7 +27,6 @@ from nested_hashing_psi_tpu_torch.config import HashTableParams, PSIParams
 from nested_hashing_psi_tpu_torch.convert import from_numpy, receive, send
 from nested_hashing_psi_tpu_torch.fhe.bfv import make_context
 from nested_hashing_psi_tpu_torch.fhe.bgv import Ciphertext, RelinKey
-from nested_hashing_psi_tpu_torch.fhe.device_decrypt import DeviceDecryptor
 from nested_hashing_psi_tpu_torch.fhe.params import (
     SchemeParams,
     default_num_limbs,
@@ -39,9 +39,10 @@ from nested_hashing_psi_tpu_torch.hashing import (
     TabulationHashing,
 )
 from nested_hashing_psi_tpu_torch.pie.simple_fhe import SimpleFHEClientOps, SimpleFHEPIE
+from nested_hashing_psi_tpu_torch.protocol import batched_fhe
 from nested_hashing_psi_tpu_torch.protocol.base import PSIClientBase, PSIServerBase
-from nested_hashing_psi_tpu_torch.protocol.batched_fhe import _sync, resolve_device
 from nested_hashing_psi_tpu_torch.protocol.channel import Channel
+from nested_hashing_psi_tpu_torch.utils.device import resolve_device, synchronize
 
 PROTOCOL_NAME = "SimpleFHE"
 DECRYPT_CHUNK_BYTES = 1 << 29  # phase rows decrypted at a time
@@ -68,7 +69,7 @@ class SimpleFHEPSIClient(PSIClientBase):
         super().__init__(data, params, channel, PROTOCOL_NAME, **kw)
         self.ht = ht
         self.device = resolve_device(device)
-        self.decryptor: DeviceDecryptor | None = None
+        self._decryptors: dict = {}  # result_zero_mask's, by (form, limbs)
 
     def run_setup_phase(self) -> None:
         p, ht = self.params, self.ht
@@ -107,39 +108,28 @@ class SimpleFHEPSIClient(PSIClientBase):
             self.ht.max_items_per_position,
         )
         self.idx_ct = self.client_ops.encrypt_query(self.sk)
-        _sync(self.device)  # the offline phase owns this cost
+        synchronize(self.device)  # the offline phase owns this cost
 
     def run_online_phase(self) -> None:
         send(self.channel, self.idx_ct.data)
         ctx, maxpp = self.ctx, self.ht.max_items_per_position
         data = receive(self.channel, self.device)
-        n_pies = data.shape[0]
         flat = data.reshape(-1, 2, ctx.L, ctx.n)
         # decrypt in bounded chunks: the whole (nPies*H)-row stack's
         # transients would sit beside the server's table on a shared card
         chunk = max(1, DECRYPT_CHUNK_BYTES // (2 * ctx.L * ctx.n * 4))
-        shape = (n_pies, self.ht.n_cuckoo_hash_functions, maxpp)
-        if self.device.type == "cuda" and ctx.default_form == "bfv":
-            if self.decryptor is None:
-                self.decryptor = DeviceDecryptor(ctx)
-            parts = [
-                self.decryptor.zero_mask(flat[s : s + chunk], self.sk.s_mont, maxpp).cpu().numpy()
-                for s in range(0, flat.shape[0], chunk)
-            ]
-            self.noise_bits = None
-            self.intersection_calculated = self.client_ops.extract_intersection_mask(
-                np.concatenate(parts, axis=0).reshape(shape)
-            )
-            return
-        slot_parts, noise = [], 0.0
+        masks, noise = [], []
         for s in range(0, flat.shape[0], chunk):
-            sl, nz = ctx.decrypt(Ciphertext(flat[s : s + chunk], ctx.default_form, 1),
-                                 self.sk, length=maxpp)
-            slot_parts.append(np.asarray(sl))
-            noise = max(noise, nz)
-        self.noise_bits = noise
-        self.intersection_calculated = self.client_ops.extract_intersection(
-            np.concatenate(slot_parts, axis=0).reshape(shape)
+            mask, bits = batched_fhe.result_zero_mask(
+                ctx, Ciphertext(flat[s : s + chunk], ctx.default_form, 1), self.sk, maxpp,
+                self._decryptors)
+            masks.append(mask)
+            noise.append(bits)
+        # the device decrypt estimates no noise
+        self.noise_bits = None if None in noise else max(0.0, *noise)
+        shape = (data.shape[0], self.ht.n_cuckoo_hash_functions, maxpp)
+        self.intersection_calculated = self.client_ops.extract_intersection_mask(
+            np.concatenate(masks, axis=0).reshape(shape)
         )
 
 
@@ -177,14 +167,14 @@ class SimpleFHEPSIServer(PSIServerBase):
         begin = time.monotonic_ns()
         self.server_table.insert_all(self.server_set)
         self.pie = SimpleFHEPIE(self.ctx, self.server_table, self.gks)
-        _sync(self.device)
+        synchronize(self.device)
         self.offline_computation_us = (time.monotonic_ns() - begin) // 1000
 
     def run_online_phase(self) -> None:
         idx = Ciphertext(receive(self.channel, self.device), self.ctx.default_form)
         begin = time.monotonic_ns()
         result = self.pie.run(idx)
-        _sync(self.device)
+        synchronize(self.device)
         self.online_computation_us = (time.monotonic_ns() - begin) // 1000
         send(self.channel, result.data)
         if self.params.export_performance:

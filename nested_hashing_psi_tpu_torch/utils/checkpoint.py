@@ -21,7 +21,7 @@ from nested_hashing_psi_tpu_torch.convert import relin_key_from_numpy, to_numpy
 from nested_hashing_psi_tpu_torch.fhe.bfv import make_context
 from nested_hashing_psi_tpu_torch.fhe.params import SchemeParams
 from nested_hashing_psi_tpu_torch.pie.batched_fhe import BatchedFHEPIE
-from nested_hashing_psi_tpu_torch.protocol.batched_fhe import resolve_device
+from nested_hashing_psi_tpu_torch.utils.device import resolve_device
 
 # v3: table_pt carries the per-depth masks folded into hash function 0's
 # plaintexts; v2 tables are unfolded and v1 files lack the scheme and key,

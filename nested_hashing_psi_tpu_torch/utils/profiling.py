@@ -45,6 +45,8 @@ from dataclasses import dataclass
 import torch
 from torch.autograd import profiler as _autograd_profiler
 
+from nested_hashing_psi_tpu_torch.utils.device import synchronize
+
 _OFF = contextlib.nullcontext()  # what an off span returns: reusable, holds nothing
 
 
@@ -174,21 +176,16 @@ class Profiler:
 TRACER = Profiler(enabled=False)
 
 
-def _synchronize(device) -> None:
-    if getattr(device, "type", None) == "cuda":
-        torch.cuda.synchronize(device)
-
-
 @contextlib.contextmanager
 def synced_span(name: str, device):
     """A span on ``TRACER`` recorded whether or not it records, timed on
     the host clock between two synchronises of ``device`` (a
     ``torch.device``), with the device's events beside it. Yields the
     span, whose ``counts`` the block may set."""
-    _synchronize(device)
+    synchronize(device)
     with _Open(TRACER, name, None, device) as span:
         yield span
-        _synchronize(device)
+        synchronize(device)
 
 _ANCHOR_OP = "aten::empty"  # the op device_trace issues first, to align the clocks
 

@@ -39,9 +39,12 @@ from nested_hashing_psi_tpu.config import PSIParams as JPSIParams
 from nested_hashing_psi_tpu.protocol.runner import run_in_process as j_run_in_process
 from nested_hashing_psi_tpu_torch.benchmarks import (
     bench,
+    bench_ntt_anatomy,
     bench_ntt_f32mxu,
     bench_ntt_kernel,
+    bench_ntt_lazy_probe,
     bench_pie_online,
+    bench_vpu_ops,
     comm_model,
     profile_online,
     run_eval,
@@ -402,9 +405,8 @@ def test_comm_model_bytes_equal_the_pinned_counts():
 
 
 def test_comm_model_bytes_equal_the_cards_counts():
-    """The counts chip_smoke.py's [parallel] phase measured on the card
-    (PERF.md §5): 2^20 row, ring 16384, BFV L = 6 (9 aux primes) and flat
-    BGV L = 9."""
+    """The counts the sharded steps' ranks measured on the card (PERF.md):
+    2^20 row, ring 16384, BFV L = 6 (9 aux primes) and flat BGV L = 9."""
     KA = comm_model.aux_limbs(6)
     assert KA == 9
     assert comm_model.sp_transforms(2, 12, 6, "bfv", KA) == 1980
@@ -434,6 +436,13 @@ def test_tools_default_to_cuda_and_raise_without_a_card(monkeypatch, tool, argv)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         tool(argv)
+
+
+@pytest.mark.parametrize("probe", [bench_vpu_ops, bench_ntt_lazy_probe, bench_ntt_anatomy],
+                         ids=["vpu_ops", "lazy", "anatomy"])
+def test_probes_refuse_devices_other_than_cpu_and_cuda(probe):
+    with pytest.raises(ValueError, match="cpu or cuda only"):
+        probe.main(["--device", "meta"])
 
 
 def test_run_eval_defaults_to_cuda_and_raises_without_a_card(tmp_path, monkeypatch):

@@ -261,6 +261,8 @@ def test_resume_on_gpu_with_pinned_host_storage(tmp_path):
     (K2 reads the uploaded slices, K1 transforms)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
+    from nested_hashing_psi_tpu_torch.ops import ntt_cuda, pie_kernels
+
     hct, client_table = _tables()
     ctx = t_bfv.make_context(SchemeParams(**SCHEMES["bfv"]), seed=5, device="cuda")
     sk, _ = ctx.keygen()
@@ -273,5 +275,9 @@ def test_resume_on_gpu_with_pinned_host_storage(tmp_path):
     t_ck.save_batched_pie(path, host)
     res = t_ck.load_batched_pie(path)
     assert res.host_table and res.table_pt.is_pinned() and res._host_positions().is_contiguous()
-    assert res.mask_pt.is_cuda and res.rlk_b.is_cuda
-    assert torch.equal(res.run(idx, minus).data, dev.run(idx, minus).data)
+    assert res.table_pt.device.type == "cpu" and res.mask_pt.is_cuda and res.rlk_b.is_cuda
+    want = dev.run(idx, minus).data
+    ntt_cuda.reset_launches()
+    pie_kernels.reset_launches()
+    assert torch.equal(res.run(idx, minus).data, want)
+    assert min(ntt_cuda.launches.values()) > 0 and pie_kernels.launches > 0

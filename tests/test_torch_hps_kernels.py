@@ -394,29 +394,3 @@ def test_cpu_path_launches_nothing():
     mc.scale_round_to_q(keep[:, :5], aux)
     rs.rescale(x)
     assert hc.launches == before
-
-
-def test_mul_relin_span_counts_hps_launches():
-    from nested_hashing_psi_tpu_torch.pie import batched_fhe
-    from nested_hashing_psi_tpu_torch.utils.profiling import TRACER
-
-    TRACER.clear()
-    with batched_fhe._mul_relin_span(_Ctx()):
-        pass
-    assert TRACER.spans == []  # off: nothing recorded, nothing counted
-    TRACER.enable()
-    try:
-        with batched_fhe._mul_relin_span(_Ctx()):
-            hc.launches += 3
-        with batched_fhe._mul_relin_span(_Ctx()):
-            pass
-    finally:
-        TRACER.disable()
-        hc.launches -= 3
-    assert [(s.name, s.counts) for s in TRACER.spans] == [
-        ("scheme.mul_relin", {"hps_launches": 3}), ("scheme.mul_relin", {"hps_launches": 0})]
-    TRACER.clear()
-
-
-class _Ctx:
-    device = torch.device("cpu")

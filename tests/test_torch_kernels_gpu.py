@@ -1,9 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card.
 
 Every test here needs a CUDA device (marker ``gpu``) and skips without one;
-run them on a GPU machine with
-
-    python -m pytest tests/test_torch_kernels_gpu.py -q
+run them on a GPU machine with README's recipe (``python -m pytest
+--noconftest -m gpu ...``).
 
 K1 (ops/ntt_cuda.py), K2 (ops/pie_kernels.py) and K3 (ops/ntt_mxu.py) must
 equal their plain versions bit for bit (integer residues: exact equality),
@@ -13,7 +12,15 @@ version's; ``mod_switch`` and ``automorphism`` on the card must equal the
 port on the CPU, the streamed protocol, the host-resident table,
 ``--bgv`` and SimpleFHE must verify on the card, and so must the
 reference's three golden tests at ring 16384 (``torch_golden_cases``).
+The protocols also run at ring 16384 through the user entry points (the
+cells' 2^20 x 2048 row among them), and the server's artifact resumes in a
+fresh process that cannot import jax, the JAX package or cryptography.
 """
+
+import json
+import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -27,6 +34,7 @@ from nested_hashing_psi_tpu_torch.ops.primes import ntt_primes
 
 pytestmark = pytest.mark.gpu
 
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 T32 = (1 << 32) + (1 << 20) + (1 << 19) + 1
 
 
@@ -120,10 +128,14 @@ def test_ntt_kernel_every_ring_size(cuda, logn):
 
 
 @pytest.mark.parametrize("mode", sorted(MODES))
-@pytest.mark.parametrize("rows,L", [(1, 1), (7, 1), (133, 7), (397, 1)])
+@pytest.mark.parametrize("rows,L", [(1, 1), (7, 1), (133, 7), (397, 1),
+                                    (108, 9), (972, 9), (64, 8), (1024, 8)])
 def test_ntt_kernel_ragged_row_counts(cuda, rows, L, mode):
     """Row counts that divide neither the card's SMs nor the split form's
-    eight chunks per block."""
+    eight chunks per block; and the other paths' transforms at ring 16384:
+    flat --bgv's relinearisation (12 rows of 9 limbs, then its 12 x 9 digits)
+    and the scaling report's across processes (D = 8 rows of 8 limbs, then
+    16 x 8 digits)."""
     ps = ntt_primes(L, 31, 2 * 16384, avoid=(T32,))
     plan = NTTPlan(16384, ps)
     _check_kernel(_residues((rows // L, L, 16384), ps, seed=rows), plan, MODES[mode], cuda)
@@ -165,19 +177,28 @@ def test_ntt_kernel_split_form_counts_two_launches(cuda):
     assert torch.equal(got.cpu(), intt(x, plan))
 
 
-def test_pie_kernel_matches_plain_main_geometry(cuda):
-    H, D, P, L, N = 2, 12, 12, 6, 16384
+@pytest.mark.parametrize("D,P", [(12, 12), (48, 48)], ids=["2p20_row", "north_star"])
+def test_pie_kernel_matches_plain_main_geometry(cuda, D, P):
+    """The BFV cells' tables, (2, 12, 12, 6, 16384) and the north star's
+    (2, 48, 48, 6, 16384); the plain version runs in slices of 4 depths
+    (its int64 products over the whole north-star table would take tens
+    of GB)."""
+    H, L, N = 2, 6, 16384
     ps = ntt_primes(L, 31, 2 * N, avoid=(T32,))
     plan = NTTPlan(N, ps)
     tb = plan.tensors(cuda)
-    idx = _residues((H, P, 2, L, N), ps, seed=2).to(cuda)
-    pt = _residues((H, D, P, L, N), ps, seed=3).to(cuda)
+    gen = torch.Generator(device=cuda).manual_seed(D)
+    idx = torch.randint(0, min(ps), (H, P, 2, L, N), generator=gen, device=cuda,
+                        dtype=torch.int32)
+    pt = torch.randint(0, min(ps), (H, D, P, L, N), generator=gen, device=cuda,
+                       dtype=torch.int32)
     before = pie_kernels.launches
     got = pie_kernels.indexed_inner_product(idx, pt, tb["p_u32"], tb["pinv_u32"])
     torch.cuda.synchronize()
     assert pie_kernels.launches == before + 1
-    want = pie_kernels.indexed_inner_product_plain(idx, pt, tb["p"], tb["pinv"])
-    assert torch.equal(got, want)
+    for d0 in range(0, D, 4):
+        want = pie_kernels.indexed_inner_product_plain(idx, pt[:, d0:d0 + 4], tb["p"], tb["pinv"])
+        assert torch.equal(got[:, d0:d0 + 4], want), d0
 
 
 def _mxu_launches_per_call(n):
@@ -331,21 +352,29 @@ def _check_decrypt_kernel(ctx, sk, ct, vals, length):
     assert mask.dtype == torch.bool and torch.equal(mask, ((lo == 0) & (hi == 0))[..., :length])
     host, _ = ctx.decrypt(ct, sk, length=length)
     np.testing.assert_array_equal(mask.cpu().numpy(), np.asarray(host, dtype=object) == 0)
-    np.testing.assert_array_equal(mask.cpu().numpy(), vals[:, :length] == 0)
+    np.testing.assert_array_equal(mask.cpu().numpy().reshape(-1, length), vals[:, :length] == 0)
     return dec, dec._phase(ct.data, sk.s_mont)
 
 
-@pytest.mark.parametrize("form,L,ship", [("bfv", 6, 4), ("bgv", 9, None)],
-                         ids=["bfv_12x4x16384", "bgv_12x9x16384"])
-def test_decrypt_kernel_at_the_cells_shapes(cuda, form, L, ship):
+@pytest.mark.parametrize("form,L,ship,t,lead", [
+    ("bfv", 6, 4, T32, (12,)), ("bgv", 9, None, T32, (12,)), ("bgv", 6, 5, 65537, (12,)),
+    ("bfv", 6, 4, T32, (4, 12)), ("bfv", 6, 4, T32, (48,)),
+], ids=["bfv_12x4x16384", "bgv_12x9x16384", "leveled_bgv_12x5x16384",
+        "bfv_queries4_4x12x4x16384", "north_star_48x4x16384"])
+def test_decrypt_kernel_at_the_cells_shapes(cuda, form, L, ship, t, lead):
     """The cells' results: 12 rows of 16384 on BFV's 4 shipped limbs and on
     flat BGV's 9, t = 2^32+2^20+2^19+1, each row split over a cluster of 8
-    blocks; a second launch gives the same mask."""
+    blocks; the leveled --bgv result (t = 65537, 5 of 6 limbs shipped), a
+    --queries 4 result (Q, D) and the north star's 48 rows; a second launch
+    gives the same mask."""
     from nested_hashing_psi_tpu_torch.ops import decrypt_cuda
 
-    ctx, sk, ct, vals = _decrypt_case(cuda, form, T32, 16384, L, 12, seed=L, ship=ship)
-    assert tuple(ct.data.shape) == (12, 2, ship or L, 16384) and ct.form == form
+    rows = int(np.prod(lead))
+    ctx, sk, ct, vals = _decrypt_case(cuda, form, t, 16384, L, rows, seed=L, ship=ship)
+    assert tuple(ct.data.shape) == (rows, 2, ship or L, 16384) and ct.form == form
+    ct.data = ct.data.reshape(*lead, *ct.data.shape[1:])
     dec, phase = _check_decrypt_kernel(ctx, sk, ct, vals, 4096)
+    phase = phase.reshape(rows, *phase.shape[-2:])
     want = decrypt_cuda.zero_mask(phase, *dec.kernel_tables, form == "bgv", 4096)
     assert torch.equal(decrypt_cuda.zero_mask(phase, *dec.kernel_tables, form == "bgv", 4096),
                        want)
@@ -515,11 +544,16 @@ def test_protocol_on_cuda_small_ring(cuda):
     assert min(ntt_cuda.launches.values()) > 0 and pie_kernels.launches == 1
 
 
-@pytest.mark.parametrize("L,t", [(9, T32), (6, 65537)], ids=["flat_bgv_L9", "leveled_L6"])
-def test_pie_kernel_matches_plain_bgv_geometry(cuda, L, t):
+@pytest.mark.parametrize("D,P,L,t", [
+    (12, 12, 9, T32), (12, 12, 6, 65537), (12, 12, 7, T32), (12, 12, 8, T32), (12, 12, 10, T32),
+    (8, 8, 8, 65537), (16, 8, 8, 65537),
+], ids=["flat_bgv_L9", "leveled_L6", "L7", "L8", "L10", "multihost_D8", "multihost_D16"])
+def test_pie_kernel_matches_plain_bgv_geometry(cuda, D, P, L, t):
     """K2 at the --bgv paths' limb counts: flat BGV at 32-bit items (L = 9)
-    and the leveled path at 16-bit items (L = 6), the primes avoiding t."""
-    H, D, P, N = 2, 12, 12, 16384
+    and the leveled path at 16-bit items (L = 6), the primes avoiding t;
+    the limb counts between, and the scaling report's table across
+    processes (L = 8, P = 8: D = 8 for each process's half, 16 whole)."""
+    H, N = 2, 16384
     ps = ntt_primes(L, 31, 2 * N, avoid=(t,))
     tb = NTTPlan(N, ps).tensors(cuda)
     idx = _residues((H, P, 2, L, N), ps, seed=L).to(cuda)
@@ -722,8 +756,10 @@ def test_bgv_protocol_on_cuda_small_ring(cuda, bits):
 
 @pytest.mark.parametrize("bgv", [False, True], ids=["bfv", "bgv"])
 def test_simple_fhe_protocol_on_cuda_small_ring(cuda, bgv):
-    """SimpleFHE on the card: K1 launched (the Galois key switches); a BFV
-    client decrypts on the device, a BGV client on the host."""
+    """SimpleFHE on the card: K1 launched (the Galois key switches); the
+    client decrypts on the device through the decrypt kernel, BFV and BGV
+    results alike (``result_zero_mask``)."""
+    from nested_hashing_psi_tpu_torch.ops import decrypt_cuda
     from nested_hashing_psi_tpu_torch.config import HashTableParams, PSIParams
     from nested_hashing_psi_tpu_torch.protocol.runner import run_in_process
 
@@ -733,10 +769,122 @@ def test_simple_fhe_protocol_on_cuda_small_ring(cuda, bgv):
                          n_simple_hash_functions=2, n_cuckoo_hash_functions=2,
                          max_items_per_position=6)
     ntt_cuda.reset_launches()
+    decrypt_cuda.reset_launches()
     client, _, ok = run_in_process(psi, ht, device="cuda")
     assert ok and len(client.intersection_calculated) == 4
     assert min(ntt_cuda.launches.values()) > 0
-    assert (client.decryptor is None) == bgv
+    assert decrypt_cuda.launches > 0 and client.noise_bits is None
+    assert list(client._decryptors) == [("bgv" if bgv else "bfv", client.ctx.L)]
+
+
+# ---- the protocols at ring 16384 through the user entry points -------------
+
+# BatchedFHE at the BFV cells' 2^20 x 2048 row (one query, --queries 4,
+# --streamChunks 4), flat --bgv on the same row (the BGV cell), --bgv -B 16
+# leveled on its table with a 4096-item server (16-bit items repeat rarely
+# at that size), and SimpleFHE at full width and reduced scale (32 inner
+# tables): run -> (flags, L, limbs the result ships on)
+ROW_2P20 = ["-F", "--batched", "-B", "32", "-S", "1048576", "-C", "2048", "-I", "1024",
+            "-e", "8022", "-E", "12", "-b", "12", "-k", "2", "-K", "2", "--device", "cuda"]
+ENTRY_RUNS = {
+    "bfv_queries1": (ROW_2P20, 6, 4),
+    "bfv_queries4": (ROW_2P20 + ["--queries", "4"], 6, 4),
+    "bfv_streamChunks4": (ROW_2P20 + ["--streamChunks", "4"], 6, 4),
+    "bgv_flat": (ROW_2P20 + ["--bgv"], 9, 9),
+    "bgv_leveled": (["-F", "--batched", "--bgv", "-B", "16", "-S", "4096", "-C", "256", "-I",
+                     "128", "-e", "8022", "-E", "12", "-b", "12", "-k", "2", "-K", "2",
+                     "--device", "cuda"], 6, 5),
+    "simple_fhe": (["-F", "-B", "32", "-S", "1024", "-C", "16", "-I", "8", "-e", "16", "-E",
+                    "12", "-b", "12", "-k", "2", "-K", "2", "--device", "cuda"], 7, 7),
+}
+
+
+@pytest.mark.parametrize("run", list(ENTRY_RUNS))
+def test_protocols_at_ring_16384_through_the_entry_points(cuda, run):
+    """``cli.parse_args`` and ``run_in_process`` on the card: each run
+    verifies with the whole intersection; it launches K1 and the decrypt
+    kernel, the batched PIE K2, and BFV the HPS kernels; the client
+    decrypts on the device (no noise estimate) in the shipped limbs'
+    context."""
+    from nested_hashing_psi_tpu_torch import cli
+    from nested_hashing_psi_tpu_torch.ops import decrypt_cuda, hps_cuda
+    from nested_hashing_psi_tpu_torch.protocol.runner import run_in_process
+
+    flags, L, shipped = ENTRY_RUNS[run]
+    psi, ht, device = cli.parse_args(flags)
+    for counter in (ntt_cuda, pie_kernels, decrypt_cuda, hps_cuda):
+        counter.reset_launches()
+    client, server, ok = run_in_process(psi, ht, device=device)
+    assert ok and len(client.intersection_calculated) == psi.intersection_set_size
+    assert server.ctx.L == L and list(client._decryptors) == [(server.ctx.default_form, shipped)]
+    assert client.noise_bits is None
+    assert min(ntt_cuda.launches.values()) > 0 and decrypt_cuda.launches > 0
+    assert (pie_kernels.launches > 0) == psi.batched
+    assert (hps_cuda.launches > 0) == run.startswith("bfv")
+    if psi.batched:
+        assert server.pie.leveled == (run == "bgv_leveled")
+
+
+# bench_e2e_psi's geometry flags -> the intersection the resume must find:
+# a small row, and the BFV cells' 2^20 x 2048 row (ROW_2P20's table)
+RESUME_ROWS = {
+    "s2p16_c256": (["--server-log2", "16", "--client-log2", "8"], 128),
+    "s2p20_c2048": (["--server-log2", "20", "--client-log2", "11", "--simpleSize", "8022",
+                     "--inner", "12"], 1024),
+}
+
+
+@pytest.mark.parametrize("row", list(RESUME_ROWS))
+def test_artifact_resumes_in_a_fresh_process_on_the_card(cuda, tmp_path, row):
+    """``bench_e2e_psi --buildOnly`` on the card, then ``--resume`` in a
+    fresh process that cannot import jax, the JAX package or cryptography
+    (stubs that raise shadow them): it verifies, launches K1 and K2, and
+    writes the result this process's resume of the same files computes,
+    bit for bit. The same table saved host-resident resumes host-resident,
+    pinned and position-major, launches K1 and K2 and answers bit-equal."""
+    from nested_hashing_psi_tpu_torch.benchmarks import bench_e2e_psi as bench
+    from nested_hashing_psi_tpu_torch.convert import from_numpy, to_numpy
+    from nested_hashing_psi_tpu_torch.fhe.bgv import Ciphertext
+    from nested_hashing_psi_tpu_torch.pie.batched_fhe import BatchedFHEPIE
+    from nested_hashing_psi_tpu_torch.utils.checkpoint import load_batched_pie, save_batched_pie
+
+    flags, found = RESUME_ROWS[row]
+    art = str(tmp_path / "row.npz")
+    assert bench.main(flags + ["--device", "cuda", "--checkpoint", art, "--buildOnly"]) == 0
+    stub = tmp_path / "stub"
+    for mod in ("jax", "nested_hashing_psi_tpu", "cryptography"):
+        (stub / mod).mkdir(parents=True)
+        (stub / mod / "__init__.py").write_text(f"raise ImportError('no {mod} in a resume')\n")
+    result = str(tmp_path / "result.npy")
+    res = subprocess.run(
+        [sys.executable, "-m", "nested_hashing_psi_tpu_torch.benchmarks.bench_e2e_psi",
+         "--resume", art, "--device", "cuda", "--resultOut", result],
+        cwd=str(tmp_path), env=dict(os.environ, PYTHONPATH=os.pathsep.join([str(stub), REPO])),
+        capture_output=True, text=True, timeout=600)
+    assert res.returncode == 0, res.stdout[-2000:] + res.stderr[-3000:]
+    assert "RESUME RESULT: Set matches!" in res.stdout and f"|intersection| {found})" in res.stdout
+    launched = json.loads(res.stdout.split("kernel launches ", 1)[1].splitlines()[0])
+    assert min(launched.values()) > 0, launched
+    pie = load_batched_pie(art, device=cuda)
+    with np.load(bench.sidecar_path(art)) as z:
+        idx, minus = (Ciphertext(from_numpy(z[k], cuda), pie.ctx.default_form)
+                      for k in ("idx", "minus"))
+    got = np.load(result)
+    want = pie.run(idx, minus).data
+    assert got.dtype == to_numpy(want).dtype and np.array_equal(got, to_numpy(want))
+
+    host_art = str(tmp_path / "row_host.npz")
+    save_batched_pie(host_art, BatchedFHEPIE.from_artifact(
+        pie.ctx, pie.rlk, pie.table_pt, pie.mask_pt, pie.H, pie.D, pie.P, pie.batch_slots,
+        leveled=pie.leveled, mul_limbs=pie.mul_limbs or 0, ship_limbs=pie.ship_limbs,
+        host_table=True))
+    rh = load_batched_pie(host_art, device=cuda)
+    assert rh.host_table and rh.table_pt.is_pinned() and rh._host_positions().is_contiguous()
+    assert rh.table_pt.device.type == "cpu"
+    ntt_cuda.reset_launches()
+    pie_kernels.reset_launches()
+    assert torch.equal(rh.run(idx, minus).data, want)
+    assert min(ntt_cuda.launches.values()) > 0 and pie_kernels.launches > 0
 
 
 # ---- the probes under benchmarks/ (A1-A3) ---------------------------------
@@ -929,17 +1077,58 @@ def test_probe_k1_line_holds_k1_against_plain(cuda):
     assert err == 0 and ms > 0
 
 
-@pytest.mark.parametrize("precomp", [False, True], ids=["SimpleElGamal", "PrecompElGamal"])
-def test_elgamal_runner_on_cuda_verifies(cuda, capsys, precomp):
+@pytest.mark.parametrize("probe,argv", [
+    (bench_vpu_ops, ["--shape", "2", "8", "128", "--mixes", "add", "mont", "fmul"]),
+    (bench_ntt_lazy_probe, ["--n", "4096", "--limbs", "2", "--batch", "5"]),
+    (bench_ntt_anatomy, ["--n", "4096", "--limbs", "2", "--batch", "5"]),
+], ids=["vpu_ops", "lazy", "anatomy"])
+def test_probe_main_on_the_card(cuda, probe, argv):
+    """Each probe's ``main`` on the card (the CPU tests run it with
+    ``--device cpu``): it holds every variant, and A2's and A3's K1 line,
+    against the plain version on the card, raising on a mismatch, and
+    launches its kernel."""
+    probe.reset_launches()
+    res = probe.main([*argv, "--iters", "1"])
+    assert probe.launches > 0
+    if probe is bench_vpu_ops:
+        assert all(r["max_abs_err"] == 0 for r in res["mixes"].values())
+    else:
+        assert all(res[v]["max_abs_err"] == 0 for v in probe.VARIANTS)
+        assert res["k1_max_abs_err"] == 0
+
+
+def test_ntt_mxu_kernels_use_wgmma_and_bulk_copies(cuda):
+    """K3's SASS (``cuobjdump`` of the built library) holds warpgroup MMAs
+    (IGMMA) and bulk or TMA copies (UBLKCP, UTMALDG): the Hopper design it
+    was written for, not a form the compiler fell back to."""
+    cuda_lib.get_lib()  # builds
+    ops = [op.split(".")[0] for name, body in bench_common.sass_functions().items()
+           if "ntt_mxu_kernel" in name for _, op, _ in body]
+    assert ops and "IGMMA" in ops
+    assert ops.count("UBLKCP") + ops.count("UTMALDG") > 0
+
+
+def test_anatomy_moves_go_through_shared_memory(cuda):
+    """A3's moves kernel stages its rows through shared memory: its row
+    loop holds LDS and STS."""
+    cuda_lib.get_lib()  # builds
+    ops = bench_ntt_anatomy.moves_sass(SplitNTTPlan(1 << 14, ntt_primes(6, 31, 1 << 15)))
+    assert ops["opcodes"].get("LDS", 0) > 0 and ops["opcodes"].get("STS", 0) > 0
+
+
+@pytest.mark.parametrize("precomp,curve", [(False, "P-192"), (True, "P-192"), (False, "K-163")],
+                         ids=["SimpleElGamal", "PrecompElGamal", "SimpleElGamal_K163"])
+def test_elgamal_runner_on_cuda_verifies(cuda, capsys, precomp, curve):
     """device="cuda" resolves the card; the ElGamal parties compute on the
-    host and launch no kernel."""
+    host, on the native EC libraries (prime and binary curves), and launch
+    no kernel."""
     from nested_hashing_psi_tpu_torch.config import HashTableParams, PSIParams
     from nested_hashing_psi_tpu_torch.protocol.runner import run_in_process
 
     ntt_cuda.reset_launches()
     pie_kernels.reset_launches()
     psi = PSIParams(server_set_size=60, client_set_size=4, intersection_set_size=2,
-                    bit_size=16, curve_name="P-192", precomp=precomp)
+                    bit_size=16, curve_name=curve, precomp=precomp)
     ht = HashTableParams(each_simple_table_size=8, each_cuckoo_table_size=6,
                          n_simple_hash_functions=2, n_cuckoo_hash_functions=2,
                          max_items_per_position=3)
@@ -947,46 +1136,74 @@ def test_elgamal_runner_on_cuda_verifies(cuda, capsys, precomp):
     assert ok and "Set matches!" in capsys.readouterr().out
     assert len(client.intersection_calculated) == 2
     assert client.device.type == server.device.type == "cuda"
+    assert server.enc.group._native is not None and client.enc.group._native is not None
     assert ntt_cuda.launches["ntt"] + ntt_cuda.launches["intt"] + pie_kernels.launches == 0
+
+
+def _entry_step(run):
+    """The batched step of an entry-point run (``ENTRY_RUNS``) on the card:
+    -> (server context, the step's inputs as numpy, its unsharded result
+    on the full basis as numpy, the client)."""
+    from nested_hashing_psi_tpu_torch import cli, convert
+    from nested_hashing_psi_tpu_torch.pie.batched_fhe import batched_pie_forward
+    from nested_hashing_psi_tpu_torch.protocol.runner import run_in_process
+
+    psi, ht, device = cli.parse_args(ENTRY_RUNS[run][0])
+    client, server, ok = run_in_process(psi, ht, device=device)
+    assert ok
+    data = dict(idx=client.idx_ct.data, minus=client.minus_ct.data, table=server.pie.table_pt,
+                mask=server.pie.mask_pt, rlk_b=server.rlk.b_mont, rlk_a=server.rlk.a_mont)
+    want = batched_pie_forward(server.ctx, server.rlk,
+                               *(data[k] for k in ("idx", "minus", "table", "mask"))).data
+    return (server.ctx, {k: convert.to_numpy(v) for k, v in data.items()},
+            convert.to_numpy(want), client)
+
+
+def _ntt_cases(ctx):
+    """The four-step and ring-exchange NTT cases on the context's q base at
+    its ring -> (cases, K1's forward of their input)."""
+    from nested_hashing_psi_tpu_torch import convert
+
+    n, ps = ctx.n, ctx.q_primes
+    x = convert.to_numpy(_residues((len(ps), n), ps, seed=10))
+    forward = convert.to_numpy(ntt_cuda.ntt(convert.from_numpy(x, ctx.device), ctx.plan))
+    m1 = 1 << ((n.bit_length() - 1 + 1) // 2)
+    return [dict(name="dist_ntt", kind="dist_ntt", params=(n, ps, m1),
+                 inputs={"x": x.reshape(len(ps), m1, n // m1)}),
+            dict(name="ring_ntt", kind="ring_ntt", params=(n, ps, 0), inputs={"x": x})], forward
 
 
 def test_sharded_steps_nccl_world_one(cuda):
     """parallel/ on NCCL at world size 1 on the card, the path a multi-GPU
-    user runs: the dp x tp, pipelined and ring-sharded steps (BFV, full
-    basis) bit-equal to the unsharded step on the same device, K1 and K2
-    launched where the steps run them; two ranks on one card are refused."""
+    user runs, on the BFV cells' 2^20 x 2048 row through the entry points
+    (D = P = 12, L = 6, ring 16384): the dp x tp, pipelined and
+    ring-sharded steps bit-equal to the unsharded step on the full basis,
+    K1 and K2 launched where the steps run them; the four-step and
+    ring-exchange NTTs at (6, 16384) bit-equal to K1 and back; two ranks on
+    one card are refused."""
     import torch.distributed as dist
 
-    from nested_hashing_psi_tpu_torch import convert
-    from nested_hashing_psi_tpu_torch.fhe.bfv import make_context
-    from nested_hashing_psi_tpu_torch.fhe.params import SchemeParams
     from nested_hashing_psi_tpu_torch.parallel.launch import run_ranks
     from nested_hashing_psi_tpu_torch.parallel.multihost import init_distributed
-    from nested_hashing_psi_tpu_torch.pie.batched_fhe import batched_pie_forward
     from torch_parallel_cases import run_cases, summarize
 
-    n, L, H, D, P = 1024, 6, 2, 4, 4
-    params = SchemeParams(ring_dim=n, plaintext_modulus=T32, num_limbs=L, scheme="bfv")
-    ctx = make_context(params, seed=3, device=cuda)
-    sk, _ = ctx.keygen()
-    rlk = ctx.relin_keygen(sk)
-    ps = ctx.q_primes
-    data = dict(idx=_residues((H, P, 2, L, n), ps, 1), minus=_residues((2, L, n), ps, 2),
-                table=_residues((H, D, P, L, n), ps, 3), mask=_residues((D, L, n), ps, 4))
-    want = batched_pie_forward(ctx, rlk, *(data[k].to(cuda) for k in data)).data
-    inputs = {k: convert.to_numpy(v) for k, v in data.items()}
-    inputs.update(rlk_b=convert.to_numpy(rlk.b_mont), rlk_a=convert.to_numpy(rlk.a_mont))
-    cases = [dict(name="dp_tp", kind="dp_tp", params=params, inputs=inputs, mesh=(1, 1)),
-             dict(name="pp", kind="pp", params=params, inputs=inputs),
-             dict(name="sp", kind="sp", params=params, inputs=inputs)]
+    ctx, inputs, want, _ = _entry_step("bfv_queries1")
+    cases = [dict(name="dp_tp", kind="dp_tp", params=ctx.params, inputs=inputs, mesh=(1, 1)),
+             dict(name="pp", kind="pp", params=ctx.params, inputs=inputs),
+             dict(name="sp", kind="sp", params=ctx.params, inputs=inputs)]
+    ntts, forward = _ntt_cases(ctx)
     init_distributed(None, 1, 0, "nccl")
     try:
-        out = summarize([run_cases(0, 1, cases, "cuda")])
+        out = summarize([run_cases(0, 1, cases + ntts, "cuda")])
     finally:
         dist.destroy_process_group()
-    for s in out:
+    for case, s in zip(ntts, out[len(cases):]):
         assert s["transport"] == "nccl"
-        np.testing.assert_array_equal(s["results"][0], convert.to_numpy(want))
+        np.testing.assert_array_equal(s["results"][0].reshape(forward.shape), forward)
+        np.testing.assert_array_equal(s["results"][1], case["inputs"]["x"])
+    for s in out[:len(cases)]:
+        assert s["transport"] == "nccl"
+        np.testing.assert_array_equal(s["results"][0], want)
         c = s["counts"][0][0]
         assert c["pie_ip"] > 0 and (s["name"] == "sp" or c["ntt_fwd"] * c["ntt_inv"] > 0)
     if torch.cuda.device_count() == 1:  # both ranks take card 0: the store check refuses
@@ -1020,6 +1237,40 @@ def test_bench_query0_mask_on_the_card(cuda):
     assert res["query0_mask_equals_host_decrypt"] and res["pipeline_Q"] == 4
     assert min(res[k] for k in ("ms_per_query", "ms_per_query_single", "ms_per_query_steady",
                                 "ms_per_query_device")) > 0
+
+
+@pytest.mark.parametrize("config", ["2^20", "2^24"])
+def test_bench_pie_online_holds_k2_at_the_sweep_rows(cuda, config):
+    """bench_pie_online at the JAX tool's 2^20 and 2^24 rows on the card: K2
+    at each table's shape (P = 14, and P = 58 at 3.3 GB) equals its plain
+    version (``run`` raises otherwise)."""
+    from nested_hashing_psi_tpu_torch.benchmarks import bench_pie_online
+
+    res = bench_pie_online.run(config, cuda)
+    assert res["k2_max_abs_err"] == 0 and res["k2_launches"] > 0 and res["k2_share"] > 0
+
+
+def test_profile_online_kernel_rows_on_the_card(cuda):
+    """profile_online on the card: the step's parts and the HPS multiply's,
+    each with the kernels a trace of it recorded, at a small bench row; then
+    its kernel readings at two small cells: each kernel of a set timed
+    alone, from a graph and through its wrapper, beside its bound; BGV runs
+    no HPS kernel."""
+    from nested_hashing_psi_tpu_torch.benchmarks import profile_online, small_pie
+
+    built = small_pie.bench_row(device=cuda, ring=4096, simple=1024, D=4, P=8)
+    for rows in (profile_online.main_rows(built, cuda, iters=2),
+                 profile_online.hps_rows(built, cuda, iters=2)):
+        assert all(r["kernels"] > 0 and r["ms"] > 0 for r in rows.values())  # traced kernels
+    res = profile_online.kernel_rows(cuda, {"bfv": (4, 6, "bfv"), "bgv": (4, 9, "bgv")},
+                                     iters=2)
+    assert sorted(res) == sorted(
+        [f"bfv {k}" for k in ("K2", "HPS rescale + extension", "HPS tensor products",
+                              "HPS scale + exact return", "HPS ship rescale", "decrypt")]
+        + ["bgv K2", "bgv decrypt"])
+    assert all(r["graph_ms"] > 0 and r["wrapper_ms"] > 0 and r["share"] > 0
+               for r in res.values())
+    assert res["bfv decrypt"]["shape"] == [4, 4, 16384]
 
 
 @pytest.mark.parametrize("golden", ["golden_fhe_pie", "golden_batched_fhe_pie",
@@ -1067,9 +1318,9 @@ def test_protocol_at_ring_16384_default_limbs(cuda, monkeypatch, simple, bit_siz
     tests/test_simple_fhe.py's two ring-16384 tests on the card: the default
     limb budget at the production ring (the 40/48-bit moduli through the
     native __int128 decode; BGV with the EvalSum ladder's 14 key switches)
-    verifies with 20 bits of noise to spare. A BFV client decrypts on the
-    device, which reads no noise: what it decrypts is decrypted again on the
-    host for the noise."""
+    verifies with 20 bits of noise to spare. The client decrypts on the
+    device, BFV and BGV results alike, which reads no noise: what it
+    decrypts is decrypted again on the host for the noise."""
     from nested_hashing_psi_tpu_torch.fhe.bgv import Ciphertext
     from nested_hashing_psi_tpu_torch.fhe.device_decrypt import DeviceDecryptor
     from nested_hashing_psi_tpu_torch.protocol.runner import run_in_process
@@ -1085,38 +1336,79 @@ def test_protocol_at_ring_16384_default_limbs(cuda, monkeypatch, simple, bit_siz
     psi, ht = _psi_ht(simple, bit_size=bit_size, bgv=bgv, ring_dim=16384, num_limbs=0)
     client, server, ok = run_in_process(psi, ht, device="cuda")
     assert ok and len(client.intersection_calculated) == psi.intersection_set_size
-    noise = client.noise_bits
-    if noise is None:
-        assert seen and not bgv
-        noise = max(client.ctx.decrypt(Ciphertext(d, "bfv"), client.sk)[1] for d in seen)
+    assert client.noise_bits is None and seen
+    form = client.ctx.default_form
+    noise = max(client.ctx.decrypt(Ciphertext(d, form), client.sk)[1] for d in seen)
     assert noise < server.ctx.params.num_limbs * 31 - 20
 
 
 def test_sharded_steps_at_ring_16384(cuda):
-    """tests/test_parallel.py::test_sharded_pie_ring16384_shapes on the card:
-    the dp x tp step's relin all-gather over tp (2 x 2) and the ring-sharded
-    step's ring exchange (4 ranks, 4096-column blocks) at ring 16384, four
-    gloo ranks sharing the card, bit-equal to the unsharded step."""
-    from nested_hashing_psi_tpu_torch import convert
-    from nested_hashing_psi_tpu_torch.benchmarks.small_pie import build_small_pie
+    """parallel/ on the card, four gloo ranks sharing it, on the inputs of
+    the BFV and flat BGV cells' 2^20 x 2048 rows through the entry points
+    (D = P = 12; BFV L = 6, flat BGV L = 9; ring 16384): the dp x tp step
+    at 2 x 2 (BFV, the relin all-gather over tp) and 4 x 1 (flat BGV), the
+    ring-sharded step (4 ranks, 4096-column blocks) and the pipelined step
+    (k = 4) under both, each bit-equal to the unsharded step on the full
+    basis, each rank launching K2 and, where its step transforms on one
+    device, K1; the 2 x 2 BFV result decrypts to the whole intersection;
+    the four-step and ring-exchange NTTs at (6, 16384) bit-equal to K1 and
+    back; the SimpleFHE step over 4 ranks at the entry-point run's
+    geometry, bit-equal to the unsharded PIE, each rank holding less than
+    the whole table."""
+    from nested_hashing_psi_tpu_torch import cli, convert
+    from nested_hashing_psi_tpu_torch.fhe.bgv import Ciphertext
     from nested_hashing_psi_tpu_torch.ops import cuda_lib
     from nested_hashing_psi_tpu_torch.parallel.launch import run_ranks
-    from nested_hashing_psi_tpu_torch.pie.batched_fhe import batched_pie_forward
+    from nested_hashing_psi_tpu_torch.pie.simple_fhe import SimpleFHEPIE
+    from nested_hashing_psi_tpu_torch.protocol import batched_fhe
+    from nested_hashing_psi_tpu_torch.protocol.runner import run_in_process
     from torch_parallel_cases import run_cases, summarize
 
-    built = build_small_pie(ring=16384, limbs=8, H=2, P=6, D=8, simple=64, device=cuda)
-    ctx, pie, rlk = built.ctx, built.pie, built.pie.rlk
-    data = dict(idx=built.idx_ct.data, minus=built.minus_ct.data, table=pie.table_pt,
-                mask=pie.mask_pt, rlk_b=rlk.b_mont, rlk_a=rlk.a_mont)
-    step_inputs = (data[k] for k in ("idx", "minus", "table", "mask"))
-    want = convert.to_numpy(batched_pie_forward(ctx, rlk, *step_inputs).data)
-    inputs = {k: convert.to_numpy(v) for k, v in data.items()}
-    cases = [dict(name="dp_tp", kind="dp_tp", params=ctx.params, inputs=inputs, mesh=(2, 2)),
-             dict(name="sp", kind="sp", params=ctx.params, inputs=inputs)]
+    rows = {"bfv": _entry_step("bfv_queries1"), "bgv": _entry_step("bgv_flat")}
+    cases, want = [], {}
+    for scheme, kind, mesh in (("bfv", "dp_tp", (2, 2)), ("bgv", "dp_tp", (4, 1)),
+                               ("bfv", "sp", None), ("bgv", "sp", None),
+                               ("bfv", "pp", None), ("bgv", "pp", None)):
+        ctx, inputs, want[f"{kind}_{scheme}"], _ = rows[scheme]
+        cases.append(dict(name=f"{kind}_{scheme}", kind=kind, params=ctx.params,
+                          inputs=inputs, mesh=mesh))
+    ntts, want["ntt"] = _ntt_cases(rows["bfv"][0])
+    cases += ntts
+    psi, ht, device = cli.parse_args(ENTRY_RUNS["simple_fhe"][0])
+    client, server, ok = run_in_process(psi, ht, device=device)
+    assert ok
+    ref = SimpleFHEPIE(server.ctx, server.server_table, server.gks, mask_seed=7)
+    want["simple"] = convert.to_numpy(ref.run(client.idx_ct).data)
+    table_bytes = ref.table_pt.numel() * ref.table_pt.element_size()
+    del ref
+    cases.append(dict(name="simple", kind="simple", params=server.ctx.params, mesh=(4, 1),
+                      inputs={"idx": convert.to_numpy(client.idx_ct.data)},
+                      hct=server.server_table,
+                      galois_keys=convert.galois_keys_to_numpy(server.gks), mask_seed=7))
+    del client, server
     cuda_lib.get_lib()  # the ranks load the library this process built
-    out = summarize(run_ranks(run_cases, 4, "gloo", (cases, "cuda"), timeout=600))
-    for s in out:
-        np.testing.assert_array_equal(s["results"][0], want, err_msg=s["name"])
+    out = summarize(run_ranks(run_cases, 4, "gloo", (cases, "cuda"), timeout=900))
+    for case, s in zip(cases, out):
+        got, name = s["results"], case["name"]
+        if case["kind"] in ("dist_ntt", "ring_ntt"):
+            np.testing.assert_array_equal(got[0].reshape(want["ntt"].shape), want["ntt"], name)
+            np.testing.assert_array_equal(got[1], case["inputs"]["x"], name)
+            continue
+        np.testing.assert_array_equal(got[0], want[name], err_msg=name)
+        counts = [c[0] for c in s["counts"]]
+        if case["kind"] == "simple":
+            assert max(s["held"]) < table_bytes, (s["held"], table_bytes)
+            assert all(c["ntt_fwd"] > 0 and c["ntt_inv"] > 0 for c in counts), counts
+        else:
+            assert all(c["pie_ip"] > 0 for c in counts), (name, counts)
+            if case["kind"] != "sp":  # the ring-sharded transforms are the distributed butterfly
+                assert all(c["ntt_fwd"] > 0 and c["ntt_inv"] > 0 for c in counts), (name, counts)
+    client = rows["bfv"][3]  # the 2 x 2 BFV result on the full basis, decrypted by the client
+    result = Ciphertext(convert.from_numpy(out[0]["results"][0], cuda), "bfv")
+    mask, _ = batched_fhe.result_zero_mask(client.ctx, result, client.sk, client.ht.batch_slots,
+                                           {})
+    found = client.client_ops.extract_intersection_mask(mask)
+    assert len(found) == client.params.intersection_set_size
 
 
 def test_sharded_step_production_geometry_memory_bounded(cuda):

@@ -9,9 +9,10 @@
 - The port's ``scaling_report`` in its multi-process mode, two processes
   on the CPU: at dp 2 x tp 1, at dp 1 x tp 2 (tp crossing the processes)
   and on the JAX tool's own command line (``--cpu --coordinator
-  host:port --num-processes 2 --process-id i``). Process 0 alone prints
-  the report, with row (c) bit-equal; processes whose inputs differ both
-  fail at the digest check.
+  host:port --num-processes 2 --process-id i``); and (marker ``gpu``) both
+  on one card at ring 16384, each launching K1 and K2. Process 0 alone
+  prints the report, with row (c) bit-equal; processes whose inputs differ
+  both fail at the digest check.
 - Its flags: ``--ranks`` with ``--num-processes 2``, and ``--num-processes
   2`` without ``--coordinator``, are errors; an nccl process that shares
   its card with another raises and does not fall back to gloo.
@@ -68,11 +69,22 @@ def test_two_process_sharded_pie(tmp_path):
 
 
 @pytest.mark.parametrize("argv,label", [
-    (["--device", "cpu", *SMALL, "--tp", "1"], "2 processes, dp 2 x tp 1, gloo"),
-    (["--device", "cpu", *SMALL, "--tp", "2"], "2 processes, dp 1 x tp 2, gloo"),
-    (["--cpu"], "2 processes, dp 2 x tp 1, gloo"),  # the JAX tool's command line
-], ids=["dp2_tp1", "dp1_tp2", "jax_command_line"])
+    pytest.param(["--device", "cpu", *SMALL, "--tp", "1"], "2 processes, dp 2 x tp 1, gloo",
+                 id="dp2_tp1"),
+    pytest.param(["--device", "cpu", *SMALL, "--tp", "2"], "2 processes, dp 1 x tp 2, gloo",
+                 id="dp1_tp2"),
+    pytest.param(["--cpu"], "2 processes, dp 2 x tp 1, gloo",  # the JAX tool's command line
+                 id="jax_command_line"),
+    # both processes on one card at ring 16384, L = 8, D = 16 (NCCL refuses
+    # two ranks on one card: gloo, staged through host memory)
+    pytest.param(["--device", "cuda", "--backend", "gloo", "--ring", "16384", "--limbs", "8",
+                  "--depths", "16", "--tp", "1"], "2 processes, dp 2 x tp 1, gloo",
+                 id="card_ring16384", marks=pytest.mark.gpu),
+])
 def test_scaling_report_across_processes(tmp_path, argv, label):
+    device = "cuda" if "cuda" in argv else "cpu"
+    if device == "cuda" and not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
     port = torch_processes.free_port()
     coord = f"127.0.0.1:{port}" if "--cpu" in argv else f"tcp://127.0.0.1:{port}"
     res = run_processes([TOOL + argv + ["--coordinator", coord, "--num-processes", "2",
@@ -84,9 +96,12 @@ def test_scaling_report_across_processes(tmp_path, argv, label):
     rows = rep["rows"]
     assert [r["label"] for r in rows] == ["1 device, unsharded", label]
     assert [r["ranks"] for r in rows] == [1, 2]
-    assert rows[1]["bit_equal"] is True and rows[1]["transport"] == "gloo"
+    staged = " staged through host memory" if device == "cuda" else ""
+    assert rows[1]["bit_equal"] is True and rows[1]["transport"] == "gloo" + staged
     assert len(rows[1]["launches"]) == 2 and rows[1]["efficiency"] > 0
-    assert rep["device"] == "cpu"
+    assert rep["device"] == device
+    if device == "cuda":  # each process launched K1 both ways and K2 over its queries
+        assert all(min(c.values()) > 0 for c in rows[1]["launches"]), rows[1]["launches"]
 
 
 def test_processes_with_different_inputs_both_fail(tmp_path):

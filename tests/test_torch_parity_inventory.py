@@ -128,7 +128,8 @@ JAX_ONLY = {
         "but its CUDA kernels, built once into build/ by ops/cuda_lib.py",
     ("__graft_entry__.py", "entry"):
         "the TPU compile-check hook (a jittable forward); on the card "
-        "chip_smoke.py drives the port's entry points",
+        "tests/test_torch_kernels_gpu.py::test_protocols_at_ring_16384_through_the_entry_points "
+        "drives the port's entry points",
     ("__graft_entry__.py", "dryrun_multichip"):
         "the TPU virtual-mesh dry run; the port's sharded steps run on "
         "torch.distributed ranks (parallel/, tests/torch_parallel_cases.py)",

@@ -144,7 +144,8 @@ def test_main_on_cpu_prints_rates(capsys, module):
 @pytest.mark.parametrize("module", [t_lazy, t_anat], ids=["lazy", "anatomy"])
 def test_main_cuda_without_gpu_raises(module):
     if torch.cuda.is_available():
-        pytest.skip("a GPU is present: the cuda run is the card's (chip_smoke.py)")
+        pytest.skip("a GPU is present: the cuda run is the card's "
+                    "(test_torch_kernels_gpu.py::test_probe_main_on_the_card)")
     with pytest.raises(RuntimeError, match="needs a GPU"):
         module.main([])
 

@@ -135,7 +135,8 @@ def test_main_on_cpu_prints_rates(capsys):
 
 
 def test_fold_floor_covers_every_mix():
-    """chip_smoke.py's fold check reads one floor per mix; only ``add``,
+    """The card's fold check (test_torch_kernels_gpu.py::
+    test_vpu_ops_chain_not_folded) reads one floor per mix; only ``add``,
     which one three-input IADD3 takes twice, sits below one instruction."""
     assert set(t_vpu.MIN_ARITH) == set(t_vpu.MIXES)
     assert {m for m, f in t_vpu.MIN_ARITH.items() if f < 1} == {"add"}
@@ -143,7 +144,8 @@ def test_fold_floor_covers_every_mix():
 
 def test_main_cuda_without_gpu_raises():
     if torch.cuda.is_available():
-        pytest.skip("a GPU is present: the cuda run is the card's (chip_smoke.py)")
+        pytest.skip("a GPU is present: the cuda run is the card's "
+                    "(test_torch_kernels_gpu.py::test_probe_main_on_the_card)")
     with pytest.raises(RuntimeError, match="needs a GPU"):
         t_vpu.main([])
 
@@ -189,8 +191,8 @@ def test_run_on_cpu_returns_the_readings_and_no_device_share():
 
 
 # SASS per application of the 11 mixes on an H100 (FMA-pipe slots, ALU), as
-# chip_smoke.py's [sass] line printed them for the one-wave kernel this
-# design replaced (NVIDIA H100 80GB HBM3)
+# the card's SASS dump gave them for the one-wave kernel this design
+# replaced (NVIDIA H100 80GB HBM3)
 ONE_WAVE_SASS = {"add": (0.0, 0.53), "mul": (1.0, 0.03), "addmul": (1.0, 0.03),
                  "where_ge": (1.0, 1.03), "mulhi": (2.0, 0.03), "shoup": (3.0, 1.03),
                  "shoup_lazy": (3.0, 0.03), "mont": (6.8, 4.2), "addmod": (1.0, 1.03),
@@ -204,7 +206,7 @@ def test_summed_bound_is_the_sum_of_each_launchs_bound():
     slot: 0.0020060) are bound by their bytes, the other nine by their
     busier pipe: 1 + 1 + 1.03 + 2 + 3 + 3 + 6.8 + 1.03 + 3.11 = 21.97
     slots, 0.0881436 ms, plus 2 x 0.0025041 = 0.0931518 ms. The larger of the
-    summed terms, as chip_smoke.py took it before, is the summed slots
+    summed terms, as the bound was taken before, is the summed slots
     (21.97 + 0.53 + 0.5 = 23.00 slots, 0.0922760 ms)."""
     sass = {m: {"fma_slots": f, "alu": a} for m, (f, a) in ONE_WAVE_SASS.items()}
     elems, slot, bytes_ms = 64 * 128 * 128, 0.0040120, 0.0025041

@@ -23,6 +23,7 @@ from nested_hashing_psi_tpu.protocol import batched_fhe as j_proto
 from nested_hashing_psi_tpu.protocol import simple_fhe as j_simple
 from nested_hashing_psi_tpu.protocol.channel import LoopbackChannel
 from nested_hashing_psi_tpu_torch import cli
+from nested_hashing_psi_tpu_torch.fhe.bgv import BGVContext
 from nested_hashing_psi_tpu_torch.protocol import batched_fhe as t_proto
 from nested_hashing_psi_tpu_torch.protocol import simple_fhe as t_simple
 from nested_hashing_psi_tpu_torch.protocol.runner import run_in_process
@@ -261,6 +262,48 @@ def test_port_bgv_and_simple_fhe_run_in_process(capsys, case):
         assert server.pie.leveled == (psi.bit_size == 16)
         shipped = server.ctx.L - (1 if server.pie.leveled else 0)
         assert client.noise_bits < 31 * shipped - 10
+
+
+DECRYPT_CASES = {("BatchedFHE", "bfv"): None, ("BatchedFHE", "bgv"): "bgv32_flat",
+                 ("SimpleFHE", "bfv"): "simple_bfv", ("SimpleFHE", "bgv"): "simple_bgv"}
+
+
+@pytest.mark.parametrize("scheme", ["bfv", "bgv"])
+@pytest.mark.parametrize("protocol", ["BatchedFHE", "SimpleFHE"])
+def test_clients_decrypt_only_through_result_zero_mask(monkeypatch, protocol, scheme):
+    """Both FHE clients pick their decrypt in one place: the host decrypt
+    runs only inside ``protocol.batched_fhe.result_zero_mask``, which each
+    client looks up at call time (the benchmark harness replaces it), and
+    the intersection is the one the client finds without the spy."""
+    name = DECRYPT_CASES[(protocol, scheme)]
+    psi, ht = (small_params(bit_size=32, num_limbs=10), small_ht()) if name is None \
+        else _case(name)
+    client, _, ok = run_in_process(psi, ht, device="cpu")
+    assert ok and len(client.intersection_calculated) == psi.intersection_set_size
+    want = sorted(map(tuple, client.intersection_calculated))
+
+    real, host_decrypt = t_proto.result_zero_mask, BGVContext.decrypt
+    calls, inside, outside = [], [], []
+
+    def spy(ctx, result, sk, length, decryptors):
+        calls.append(result.form)
+        inside.append(True)
+        try:
+            return real(ctx, result, sk, length, decryptors)
+        finally:
+            inside.pop()
+
+    def watched(self, *args, **kw):
+        if not inside:
+            outside.append(args)
+        return host_decrypt(self, *args, **kw)
+
+    monkeypatch.setattr(t_proto, "result_zero_mask", spy)
+    monkeypatch.setattr(BGVContext, "decrypt", watched)
+    client, _, ok = run_in_process(psi, ht, device="cpu")
+    assert ok and sorted(map(tuple, client.intersection_calculated)) == want
+    assert calls and set(calls) == {scheme} and not outside
+    assert client.noise_bits is not None  # the host decrypt's estimate, as before
 
 
 def _role(module, role):

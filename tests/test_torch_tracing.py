@@ -178,11 +178,22 @@ def test_on_records_the_exchange_nested(tracer, scheme, mode, on_from):
 
 
 def test_device_span_on_the_cpu_has_no_device_ms():
+    """A span on an explicit CPU device records no device time; ``device=True``
+    means the card where there is one: it times it there, and records
+    nothing on a machine without one."""
     prof = Profiler()
-    for device in (True, torch.device("cpu")):
-        with prof.span("k", device=device):
-            torch.ones(8).add_(1)
-    assert [s.device_ms for s in prof.between(0, 2**63)] == [None, None]
+    with prof.span("cpu", device=torch.device("cpu")):
+        torch.ones(8).add_(1)
+    if torch.cuda.is_available():
+        torch.cuda.init()  # device=True times the card once CUDA is in use
+    with prof.span("default", device=True):
+        torch.ones(8).add_(1)
+    got = {s.name: s.device_ms for s in prof.between(0, 2**63)}
+    assert got["cpu"] is None
+    if torch.cuda.is_available():
+        assert got["default"] is not None and got["default"] >= 0
+    else:
+        assert got["default"] is None
 
 
 def test_between_clips_to_the_stretch(monkeypatch):

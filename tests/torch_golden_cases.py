@@ -22,8 +22,8 @@ parity tests, where the security bound is waived as the reference's
 bounds as the reference's tests), and returns its zero pattern, noise and
 bound, seconds, the K1/K2 launches it made (kernel launches: 0 on the CPU)
 and, for the parity tests, its tables and result ciphertext.
-``chip_smoke.py`` and ``tests/test_torch_kernels_gpu.py`` run them on the
-card; ``tests/test_torch_goldens.py`` holds them against the JAX package.
+``tests/test_torch_kernels_gpu.py`` runs them on the card;
+``tests/test_torch_goldens.py`` holds them against the JAX package.
 """
 
 from __future__ import annotations
@@ -43,6 +43,7 @@ from nested_hashing_psi_tpu_torch.ops import ntt_cuda, pie_kernels
 from nested_hashing_psi_tpu_torch.pie.batched_fhe import BatchedFHEPIE
 from nested_hashing_psi_tpu_torch.pie.simple_fhe import SimpleFHEPIE
 from nested_hashing_psi_tpu_torch.protocol.channel import tensor_from_bytes, tensor_to_bytes
+from nested_hashing_psi_tpu_torch.utils.device import synchronize
 
 T_33 = (1 << 32) + (1 << 20) + (1 << 19) + 1  # reference 32-bit-items modulus
 FIX_SEED = 122333444455555                    # reference test item seed
@@ -74,11 +75,6 @@ def _counts() -> dict:
 
 def _since(before: dict) -> dict:
     return {k: v - before[k] for k, v in _counts().items()}
-
-
-def _sync(device) -> None:
-    if torch.device(device).type == "cuda":
-        torch.cuda.synchronize(device)
 
 
 def golden_fhe_pie(device, ring: int = RING) -> dict:
@@ -122,10 +118,10 @@ def golden_fhe_pie(device, ring: int = RING) -> dict:
     pt = ctx.make_plaintext_rns(vec.reshape(n_hf, table_size + 1))
     idx_ct = Ciphertext(ctx.encrypt_sk(pt, sk).data.reshape(1, n_hf, 2, ctx.L, ctx.n))
 
-    _sync(device)
+    synchronize(device)
     t1 = time.perf_counter()
     result = pie.run(idx_ct)
-    _sync(device)
+    synchronize(device)
     online_s = time.perf_counter() - t1
     slots, noise = ctx.decrypt(result, sk, length=bin_size)
     bound = ctx.params.q.bit_length() - T_33.bit_length() - 2
@@ -190,10 +186,10 @@ def golden_batched_fhe_pie(device, ring: int = RING) -> dict:
     minus = np.full(pie.batch_slots, -client_elem, dtype=object)
     minus_ct = ctx.encrypt_sk(ctx.make_plaintext_rns(minus), sk)
 
-    _sync(device)
+    synchronize(device)
     t1 = time.perf_counter()
     result = pie.run(idx_ct, minus_ct)
-    _sync(device)
+    synchronize(device)
     online_s = time.perf_counter() - t1
     slots, noise = ctx.decrypt(result, sk, length=pie.batch_slots)
     bound = ctx.params.q.bit_length() - T_33.bit_length() - 2

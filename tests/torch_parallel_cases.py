@@ -1,9 +1,9 @@
-"""The rank program of the parallel tests and of ``chip_smoke.py``: ``run_cases``.
+"""The rank program of the parallel tests, on the CPU and on the card: ``run_cases``.
 
 It runs sharded steps of ``nested_hashing_psi_tpu_torch.parallel`` on given
-inputs and imports no JAX, so that ranks spawned from a test or from
-``chip_smoke.py`` can import it (``run_ranks`` pickles it by module name;
-spawned ranks inherit this directory on ``sys.path``).
+inputs and imports no JAX, so that ranks spawned from a test can import it
+(``run_ranks`` pickles it by module name; spawned ranks inherit this
+directory on ``sys.path``).
 
 ``launch.run_ranks(run_cases, world, backend, (cases, device))`` runs, in
 every rank, each case of the list in turn: it builds the case's mesh over
@@ -48,13 +48,9 @@ from nested_hashing_psi_tpu_torch.parallel.multihost import (
     host_to_global,
     compute_device,
 )
+from nested_hashing_psi_tpu_torch.utils.device import synchronize
 
 BATCHED = ("idx", "minus", "table", "mask", "rlk_b", "rlk_a")
-
-
-def _sync(device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
 
 
 def _counts() -> dict:
@@ -131,7 +127,7 @@ def run_cases(rank: int, world: int, cases: list, device="cuda") -> list:
     device = compute_device(device)
     contexts, out = {}, []
     for case in cases:
-        _sync(device)
+        synchronize(device)
         base = _allocated(device)
         m, stages = _build(case, world, device, contexts)
         args = None
@@ -141,20 +137,20 @@ def run_cases(rank: int, world: int, cases: list, device="cuda") -> list:
                 args = [host_to_global(m, s, case["inputs"][k]) for s, k in zip(in_specs, names)]
                 held = _allocated(device) - base
             fn(*args)  # the first query
-            _sync(device)
+            synchronize(device)
             _reset()
             local = fn(*args)
-            _sync(device)
+            synchronize(device)
             counts.append(_counts())
             for _ in range(case.get("warm", 0)):
                 fn(*args)
             ms.append([])
             for _ in range(case.get("iters", 0)):
                 dist.barrier()
-                _sync(device)
+                synchronize(device)
                 t0 = time.perf_counter()
                 fn(*args)
-                _sync(device)
+                synchronize(device)
                 ms[-1].append((time.perf_counter() - t0) * 1e3)
             results.append(global_to_host(local, m, out_spec))
             args = [local]  # an NTT's inverse runs on its forward's output

@@ -1,6 +1,6 @@
 """Processes launched on their own, side by side: ``free_port`` and
-``run_processes``, for ``tests/test_torch_multihost.py`` and the
-``[multihost]`` phase of ``chip_smoke.py``.
+``run_processes``, for ``tests/test_torch_multihost.py`` (its CPU cases
+and its case on the card).
 
 Imports neither JAX nor torch, and is not a test module.
 """
