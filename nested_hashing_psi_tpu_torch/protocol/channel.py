@@ -13,7 +13,10 @@ Two implementations:
    threads of one test process (the reference needs two OS processes).
 
 Tensor serialization is a minimal versioned framing of numpy buffers --
-ciphertexts are uint32 limb tensors, so one message = one dense array.
+ciphertexts are uint32 limb tensors, so one message = one dense array. A
+message is ``bytes`` or a 1-D uint8 numpy array holding the same bytes (a
+frame written in place, ``convert.send``), which ``LoopbackChannel``
+carries by reference and ``TCPChannel`` writes as it is.
 
 A read's span ``wire.wait`` (``utils.profiling.TRACER``) holds the time it
 blocks for the peer: the loopback queue's ``get``, or a TCP read until the
@@ -52,16 +55,30 @@ class WireFormatError(ValueError):
     wire is untrusted input and must fail loudly under python -O too)."""
 
 
+def frame_header(dtype, shape) -> bytes:
+    """The header of the frame of an array of ``dtype`` and ``shape``: the
+    magic, the dtype string with its length, the rank and the dims; the
+    payload follows it. ``tensor_to_bytes`` and a frame written in place
+    (``convert.send``) both write it."""
+    dt = np.dtype(dtype).str.encode()
+    return struct.pack(f"<4sB{len(dt)}sB{len(shape)}q", _MAGIC, len(dt), dt, len(shape), *shape)
+
+
 def tensor_to_bytes(arr: np.ndarray) -> bytes:
     arr = np.ascontiguousarray(arr)
-    dt = arr.dtype.str.encode()
-    header = struct.pack("<4sB", _MAGIC, len(dt)) + dt
-    header += struct.pack("<B", arr.ndim)
-    header += struct.pack(f"<{arr.ndim}q", *arr.shape)
+    header = frame_header(arr.dtype, arr.shape)
     return b"".join((header, arr.reshape(-1).view(np.uint8)))  # one copy of the payload
 
 
-def tensor_from_bytes(buf: bytes) -> np.ndarray:
+def _is_frame(msg) -> bool:
+    """A message the port's channels carry: bytes, or a 1-D uint8 array."""
+    return isinstance(msg, bytes) or (
+        isinstance(msg, np.ndarray) and msg.dtype == np.uint8 and msg.ndim == 1)
+
+
+def tensor_from_bytes(buf) -> np.ndarray:
+    """The array a frame holds, a view of ``buf`` (``bytes`` or a 1-D uint8
+    array)."""
     if len(buf) < 6:
         raise WireFormatError(f"tensor frame too short ({len(buf)} bytes)")
     magic, dt_len = struct.unpack_from("<4sB", buf, 0)
@@ -70,7 +87,7 @@ def tensor_from_bytes(buf: bytes) -> np.ndarray:
     off = 5
     if len(buf) < off + dt_len + 1:
         raise WireFormatError("truncated tensor frame header")
-    dt = buf[off : off + dt_len].decode("ascii", errors="replace")
+    dt = bytes(buf[off : off + dt_len]).decode("ascii", errors="replace")
     if dt not in _ALLOWED_DTYPES:
         raise WireFormatError(f"disallowed wire dtype {dt!r}")
     off += dt_len
@@ -103,10 +120,11 @@ class Channel:
         self.bytes_in = 0
         self.bytes_out = 0
 
-    def write_msg(self, payload: bytes) -> None:
+    def write_msg(self, payload) -> None:
+        """Send one message: ``bytes`` or a 1-D uint8 array."""
         raise NotImplementedError
 
-    def read_msg(self) -> bytes:
+    def read_msg(self):
         raise NotImplementedError
 
     def write_tensor(self, arr) -> None:
@@ -135,9 +153,10 @@ _POISON = _Poison()
 
 
 class LoopbackChannel(Channel):
-    """In-process channel: every frame crosses as the bytes TCP would carry.
-    (The JAX package's option to pass device arrays by reference has no
-    caller in the port and is left out.)"""
+    """In-process channel: every frame crosses as the bytes TCP would carry,
+    a frame written in place by reference (its buffer is the peer's once
+    written). (The JAX package's option to pass device arrays by reference
+    has no caller in the port and is left out.)"""
 
     def __init__(self, inbox: "queue.Queue", outbox: "queue.Queue"):
         super().__init__()
@@ -150,20 +169,20 @@ class LoopbackChannel(Channel):
         b: queue.Queue = queue.Queue()
         return cls(a, b), cls(b, a)
 
-    def write_msg(self, payload: bytes) -> None:
+    def write_msg(self, payload) -> None:
         self.bytes_out += len(payload) + 8
-        self._outbox.put(bytes(payload))
+        self._outbox.put(payload if isinstance(payload, np.ndarray) else bytes(payload))
 
     def poison(self) -> None:
         """Unblock the peer: its next read raises ConnectionError."""
         self._outbox.put(_POISON)
 
-    def read_msg(self) -> bytes:
+    def read_msg(self):
         with TRACER.span("wire.wait"):
             msg = self._inbox.get()
         if msg is _POISON:
             raise ConnectionError("peer failed (poisoned loopback channel)")
-        if not isinstance(msg, bytes):
+        if not _is_frame(msg):
             raise WireFormatError("unexpected in-process message type")
         self.bytes_in += len(msg) + 8
         return msg
@@ -209,10 +228,11 @@ class TCPChannel(Channel):
                 time.sleep(retry_ms / 1000.0)
         raise ConnectionError(f"could not connect to {ip}:{port}")
 
-    def write_msg(self, payload: bytes) -> None:
-        frame = struct.pack("<Q", len(payload)) + payload
-        self._sock.sendall(frame)
-        self.bytes_out += len(frame)
+    def write_msg(self, payload) -> None:
+        # the prefix, then the message as it is: no joined copy of the payload
+        self._sock.sendall(struct.pack("<Q", len(payload)))
+        self._sock.sendall(payload)
+        self.bytes_out += 8 + len(payload)
 
     def read_msg(self) -> bytes:
         with TRACER.span("wire.wait"):

@@ -147,18 +147,151 @@ def test_channel_frames_byte_identical():
     assert t_base.PHASE_SIGNAL_BYTES == j_base.PHASE_SIGNAL_BYTES
 
 
-@pytest.mark.parametrize("writer", ["port", "jax"])
+def _in_buffer(frame: bytes, payload: int) -> np.ndarray:
+    """``frame`` held in a uint8 array (not ``bytes``), its last ``payload``
+    bytes starting 16-byte aligned behind a pad, as ``convert.send`` writes
+    a GPU tensor's frame in place."""
+    header = len(frame) - payload
+    raw = np.zeros(len(frame) + 32, np.uint8)
+    pad = -(raw.ctypes.data + header) % 16
+    buf = raw[pad : pad + len(frame)]
+    buf[:] = np.frombuffer(frame, np.uint8)
+    assert (buf.ctypes.data + header) % 16 == 0 and buf.base is not None
+    return buf
+
+
+@pytest.mark.parametrize("k", range(len(FRAMES)))
+def test_frame_header_writes_the_jax_frame(k):
+    """The one header writer (``tensor_to_bytes`` and the frames written in
+    place take it), followed by the payload, is the JAX package's frame."""
+    arr = FRAMES[k]
+    header = t_channel.frame_header(arr.dtype, arr.shape)
+    assert header + arr.tobytes() == j_channel.tensor_to_bytes(arr)
+    assert len(header) == 6 + len(arr.dtype.str) + 8 * arr.ndim
+
+
+@pytest.mark.parametrize("k", range(len(FRAMES)))
+def test_frame_in_a_buffer_parses_like_bytes(k):
+    arr = FRAMES[k]
+    frame = j_channel.tensor_to_bytes(arr)
+    got = t_channel.tensor_from_bytes(_in_buffer(frame, arr.nbytes))
+    assert got.dtype == arr.dtype and got.shape == arr.shape
+    np.testing.assert_array_equal(got, arr)
+
+
+BAD_FRAMES = {
+    "short": b"NHP1",
+    "magic": b"XXXX\x03<u4\x00",
+    "header": b"NHP1\x05<u4",
+    "dtype": b"NHP1\x03<f8\x00",
+    "rank": b"NHP1\x03<u4\x09",
+    "shape": b"NHP1\x03<u4\x02" + bytes(8),
+    "negative": b"NHP1\x03<u4\x01" + (-1).to_bytes(8, "little", signed=True),
+    "payload": j_channel.tensor_to_bytes(FRAMES[0])[:-1],
+}
+
+
+@pytest.mark.parametrize("name", list(BAD_FRAMES))
+def test_bad_frame_in_a_buffer_raises_like_bytes(name):
+    """Every refusal of ``tensor_from_bytes`` on bytes, with its message,
+    holds for the same frame in a uint8 array; JAX refuses the bytes too."""
+    frame = BAD_FRAMES[name]
+    with pytest.raises(j_channel.WireFormatError):
+        j_channel.tensor_from_bytes(frame)
+    with pytest.raises(t_channel.WireFormatError) as as_bytes:
+        t_channel.tensor_from_bytes(frame)
+    with pytest.raises(t_channel.WireFormatError) as in_buffer:
+        t_channel.tensor_from_bytes(_in_buffer(frame, 0))
+    assert str(in_buffer.value) == str(as_bytes.value)
+
+
+def test_loopback_carries_buffer_frames_and_counts_like_jax():
+    """A frame in a uint8 array crosses the port's loopback by reference and
+    is counted as the JAX loopback counts the same frame sent as bytes."""
+    tc, ts = t_channel.LoopbackChannel.pair()
+    jc, js = j_channel.LoopbackChannel.pair()
+    for arr in FRAMES:
+        buf = _in_buffer(j_channel.tensor_to_bytes(arr), arr.nbytes)
+        tc.write_msg(buf)
+        jc.write_tensor(arr)
+        msg = ts.read_msg()
+        assert msg is buf
+        got = t_channel.tensor_from_bytes(msg)
+        assert got.dtype == arr.dtype
+        np.testing.assert_array_equal(got, js.read_tensor())
+    assert (tc.bytes_out, ts.bytes_in) == (jc.bytes_out, js.bytes_in)
+    tc.write_msg(np.zeros(4, np.uint32))  # not a frame: refused on reading
+    with pytest.raises(t_channel.WireFormatError):
+        ts.read_msg()
+
+
+def test_send_to_a_channel_that_takes_bytes_sends_bytes():
+    """``convert.send`` hands the JAX loopback (which takes no buffer frame)
+    bytes, for a tensor and a host array; the port's loopback gets bytes for
+    every frame but a GPU tensor's."""
+    import torch
+
+    from nested_hashing_psi_tpu_torch import convert
+
+    t = torch.arange(24, dtype=torch.int32).reshape(2, 3, 4)
+    meta = np.array([7, 1], np.uint64)
+    for mod in (j_channel, t_channel):
+        w, r = mod.LoopbackChannel.pair()
+        sent, write = [], w.write_msg
+        w.write_msg = lambda msg: (sent.append(type(msg)), write(msg))
+        for x in (t, meta):
+            convert.send(w, x)
+            got = convert.receive(r)
+            want = x.numpy().view(np.uint32) if isinstance(x, torch.Tensor) else x
+            assert got.dtype == want.dtype
+            np.testing.assert_array_equal(got, want)
+        assert sent == [bytes, bytes]
+
+
+@pytest.mark.parametrize("shape,cut", [((2, 3, 4), None), ((0, 5), None),
+                                       ((2, 3, 2, 6, 16), None), ((2, 3, 2, 6, 16), 2)],
+                         ids=["small", "empty", "index", "index_chunk"])
+def test_frame_written_in_place_is_the_jax_frame(shape, cut):
+    """``convert.send``'s frame of a GPU tensor, written here in place for a
+    CPU tensor (pageable), a streamed chunk's strided slice among them: the
+    JAX package's bytes, the payload 16-byte aligned, and ``base`` a tensor
+    over exactly the frame; it crosses the loopback and reads back."""
+    import torch
+
+    from nested_hashing_psi_tpu_torch import convert
+
+    rng = np.random.default_rng(len(shape))
+    t = torch.from_numpy(rng.integers(0, 2**31 - 1, size=shape).astype(np.int32))
+    if cut is not None:
+        t = t[:, :cut]
+    arr = np.ascontiguousarray(t.numpy()).view(np.uint32)
+    frame = convert._frame_in_place(t)
+    assert bytes(frame) == j_channel.tensor_to_bytes(arr)
+    assert (frame.ctypes.data + len(frame) - arr.nbytes) % 16 == 0
+    assert isinstance(frame.base, torch.Tensor) and frame.base.numel() == len(frame)
+    assert frame.base.data_ptr() == frame.ctypes.data
+    assert not frame.base.is_pinned()  # page-locked only for a GPU tensor
+    w, r = t_channel.LoopbackChannel.pair()
+    w.write_msg(frame)
+    assert torch.equal(convert.receive(r, "cpu"), t)
+
+
+@pytest.mark.parametrize("writer", ["port", "jax", "port_buffer"])
 def test_tcp_frames_cross_packages(writer):
     """A port TCPChannel and a JAX one on the two ends of a localhost TCP
-    connection: the same frames, the same byte counters, both ways."""
+    connection: the same frames, the same byte counters, both ways; a port
+    channel writing a frame held in a uint8 array delivers the same bytes."""
     with socket.create_server(("127.0.0.1", 0)) as srv:
         a = socket.create_connection(srv.getsockname(), timeout=10)
         b, _ = srv.accept()
-    mods = (t_channel, j_channel) if writer == "port" else (j_channel, t_channel)
+    mods = (j_channel, t_channel) if writer == "jax" else (t_channel, j_channel)
     w, r = mods[0].TCPChannel(a), mods[1].TCPChannel(b)
     try:
         for arr in FRAMES:
-            w.write_tensor(arr)
+            if writer == "port_buffer":
+                w.write_msg(_in_buffer(j_channel.tensor_to_bytes(arr), arr.nbytes))
+            else:
+                w.write_tensor(arr)
             got = r.read_tensor()
             assert got.dtype == arr.dtype
             np.testing.assert_array_equal(got, arr)

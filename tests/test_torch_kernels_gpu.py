@@ -495,6 +495,116 @@ def test_streamed_protocol_on_cuda(cuda):
     assert client.noise_bits is None and client._decryptors
 
 
+# The cells' frames at ring 16384: index ciphertexts (H, P, 2, L, N), the
+# minus ciphertext (2, L, N) and the result (D, 2, shipped limbs, N) of BFV
+# 2^20 (L = 6, 4 shipped), flat BGV 2^20 (L = 9) and the north star (D = P = 48).
+CELL_FRAMES = {
+    "bfv_index": (2, 12, 2, 6, 16384), "bgv_index": (2, 12, 2, 9, 16384),
+    "north_star_index": (2, 48, 2, 6, 16384), "bfv_minus": (2, 6, 16384),
+    "bgv_minus": (2, 9, 16384), "bfv_result": (12, 2, 4, 16384),
+    "bgv_result": (12, 2, 9, 16384), "north_star_result": (48, 2, 4, 16384),
+}
+
+
+@pytest.mark.parametrize("name", list(CELL_FRAMES))
+def test_cuda_frames_cross_without_host_copies(cuda, name):
+    """A CUDA tensor's frame at the cells' shapes over the loopback: written
+    in place in page-locked memory, carried as it is, uploaded from it. The
+    round trips are bit-equal, each frame's bytes are ``tensor_to_bytes`` of
+    the downloaded array, every span counts no host copy. Two frames written
+    before either is read arrive intact; a ``non_blocking`` upload (the
+    streamed chunks') held behind device work is bit-equal after a
+    synchronise, though a frame of its size is downloaded on another stream
+    meanwhile: a frame in flight is never reused. A streamed chunk (a
+    strided slice) crosses too."""
+    from nested_hashing_psi_tpu_torch import convert
+    from nested_hashing_psi_tpu_torch.protocol.channel import LoopbackChannel, tensor_to_bytes
+    from nested_hashing_psi_tpu_torch.utils.profiling import TRACER
+
+    shape = CELL_FRAMES[name]
+    gen = torch.Generator(device=cuda).manual_seed(len(name))
+    xs = [torch.randint(0, 2**31 - 1, shape, dtype=torch.int32, device=cuda, generator=gen)
+          for _ in range(3)]
+    xs.append(xs[0][:, : shape[1] // 2])
+    order = [0, 1, 2, 0, 3]  # the tensors in the order they are sent
+    w, r = LoopbackChannel.pair()
+    frames, write = [], w.write_msg
+
+    def recorded_write(msg):  # keeps no reference to the frame
+        frames.append((type(msg), msg.base.is_pinned(), msg.ctypes.data, bytes(msg)))
+        write(msg)
+
+    w.write_msg = recorded_write
+    side, held = torch.cuda.Stream(), torch.cuda.Event()
+    torch.cuda._sleep(1)  # loaded before it is timed
+    torch.cuda.synchronize()
+    TRACER.clear()
+    TRACER.enable()
+    try:
+        convert.send(w, xs[0])
+        convert.send(w, xs[1])  # both written before either is read
+        got = [convert.receive(r, cuda), convert.receive(r, cuda)]
+        convert.send(w, xs[2])
+        torch.cuda._sleep(1_000_000_000)  # holds the stream: the upload waits
+        streamed = convert.receive(r, cuda, non_blocking=True)
+        held.record()
+        with torch.cuda.stream(side):
+            convert.send(w, xs[0])  # a frame of the same size, meanwhile
+        in_flight = not held.query()
+        got += [streamed, convert.receive(r, cuda)]
+        convert.send(w, xs[3])
+        got.append(convert.receive(r, cuda))
+        torch.cuda.synchronize()
+        spans = [s for s in TRACER.spans if s.name in ("wire.pack", "wire.unpack")]
+    finally:
+        TRACER.disable()
+        TRACER.clear()
+    for g, k in zip(got, order):
+        assert g.is_cuda and torch.equal(g, xs[k]), k
+    for (kind, pinned, _, frame), k in zip(frames, order):
+        assert kind is np.ndarray and pinned
+        assert frame == tensor_to_bytes(xs[k].cpu().numpy().view(np.uint32))
+    assert in_flight and frames[3][2] != frames[2][2]  # not the buffer of the upload in flight
+    assert len(spans) == 10 and all(s.counts == {"host_copies": 0} for s in spans)
+
+
+def test_cuda_frame_to_a_channel_that_takes_bytes(cuda):
+    """A channel not derived from the port's ``Channel`` (as the JAX
+    package's) takes no buffer frame: it gets bytes, one host copy, and a
+    receive from it copies the payload once into page-locked memory."""
+    from nested_hashing_psi_tpu_torch import convert
+    from nested_hashing_psi_tpu_torch.protocol.channel import (
+        tensor_from_bytes,
+        tensor_to_bytes,
+    )
+    from nested_hashing_psi_tpu_torch.utils.profiling import TRACER
+
+    class BytesOnly:
+        def __init__(self):
+            self.msgs = []
+
+        def write_tensor(self, arr):
+            self.msgs.append(tensor_to_bytes(arr))
+
+        def read_tensor(self):
+            return tensor_from_bytes(self.msgs.pop(0))
+
+    x = torch.randint(0, 2**31 - 1, CELL_FRAMES["bfv_minus"], dtype=torch.int32, device=cuda)
+    ch = BytesOnly()
+    TRACER.clear()
+    TRACER.enable()
+    try:
+        convert.send(ch, x)
+        assert type(ch.msgs[0]) is bytes
+        assert ch.msgs[0] == tensor_to_bytes(x.cpu().numpy().view(np.uint32))
+        assert torch.equal(convert.receive(ch, cuda), x)
+        counts = [s.counts for s in TRACER.spans if s.name in ("wire.pack", "wire.unpack")]
+    finally:
+        TRACER.disable()
+        TRACER.clear()
+    assert counts == [{"host_copies": 1}] * 2
+
+
 def test_host_table_on_cuda_matches_device_table(cuda):
     """The pinned host table with two-buffer uploads on a copy stream
     answers exactly like the device-resident table."""

@@ -3,7 +3,8 @@ nothing and reads no clock but for the server's offline build, whose spans
 are recorded always; on (``enable()`` or a torch.profiler session), a CPU
 loopback BatchedFHE exchange at ring 128 records every span the protocol,
 wire, PIE and scheme layers open, nested as they are called, in each
-party's thread, numbered by the party's online phase; ``between`` clips;
+party's thread, numbered by the party's online phase, each frame's span
+with the host copies its path made; ``between`` clips;
 ``device_trace`` writes the spans into its chrome trace, aligned with the
 profiler's events."""
 
@@ -173,6 +174,12 @@ def test_on_records_the_exchange_nested(tracer, scheme, mode, on_from):
         assert _within(step, client[step.exchange])  # the same request
     frames = [s for s in spans if s.name in ("wire.pack", "wire.unpack")]
     assert all(s.nbytes > 0 for s in frames)
+    # on the CPU every frame is joined into bytes (one copy of its payload),
+    # a residue frame read onto the device copied once, a meta vector (at
+    # most two uint64) read as it came
+    for s in frames:
+        copies = 1 if s.name == "wire.pack" else int(s.nbytes > 16)
+        assert s.counts == {"host_copies": copies}, s
     minus = 2 * LIMBS * RING * 4
     assert [s.nbytes for s in frames if s.thread == main][0] == minus
 
